@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Drive the port's CKKS server path on one NVIDIA card, kernels checked.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and
+the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
+``seal_tpu``.  Phases, each printing its lines:
+
+1. setup: the card's name and power limit, torch and CUDA versions, the
+   kernels built from ``seal_tpu_torch/csrc`` (seconds, ptxas registers);
+2. kernel A (negacyclic NTT) against its plain PyTorch version on the card,
+   bit-exact, at every shape and modulus set of the main path plus one
+   N=16384 shape, with the kernel's and the plain version's times;
+3. kernel B (fused key-switch contraction) against its plain version:
+   D=4 with and without the diagonal, the next level's key trim, and D=66
+   at N=1024 (the Barrett guard every 64 summands);
+4. the slice: Evaluator multiply -> relinearize -> rescale_to_next for 8
+   requests at CKKS N=8192, bits [60, 40, 40, 40, 60], equal to the plain
+   path on the card, the first request equal to the golden digest of the
+   JAX package's output, and the launch counters showing both kernels on
+   every request; then ms per request, requests/s and a profiler split.
+
+The line before the last is a JSON object of the kernels' numbers; the last
+is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
+error raises before those lines, and the exit code is not 0.  Without a
+CUDA device it exits with code 2 and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Peak rates of one H100 SXM (NVIDIA data sheet): HBM bandwidth, and the
+# float32 rate outside the tensor cores, taken here as the rate of 32-bit
+# integer operations.  The card issues INT32 at no more than that rate, so a
+# bound computed with it is a lower bound on the time.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
+# 32-bit operations counted per u64 operation: a 64x64-bit multiply (low or
+# high half) takes four 32x32-bit partial products; an add, subtract or
+# compare-and-select takes two.
+OPS_MUL64 = 4
+OPS_ADD64 = 2
+# One Harvey butterfly: three u64 multiplies (Shoup) and six adds,
+# subtracts and conditional subtractions.
+OPS_BUTTERFLY = 3 * OPS_MUL64 + 6 * OPS_ADD64
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def cuda_ms(fn, iters, warmup=3):
+    """Mean device time of fn() over iters launches, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ntt_work(rows, k, log_n):
+    """Bytes and 32-bit operations of one NTT call over rows x n."""
+    n = 1 << log_n
+    nbytes = 8 * (2 * rows * n + 2 * k * n)          # data in and out, one table pair
+    ops = rows * (log_n * (n // 2) * OPS_BUTTERFLY + n * 2 * OPS_ADD64)
+    return nbytes, ops
+
+
+def switch_key_work(D, key_rows, Rn, log_n, diag):
+    n = 1 << log_n
+    nbytes = 8 * n * (D * (2 if diag else 1) + 2 * D * Rn + 2 * Rn + 2 * Rn)
+    ntts = D * Rn - (D if diag else 0)
+    ops = ntts * log_n * (n // 2) * OPS_BUTTERFLY
+    # per (j, i, coefficient): Barrett-64 (2 mul, 2 add), two guards, two
+    # 64x64->128 products and two u128 adds; per output: Barrett-128
+    ops += D * Rn * n * (2 * OPS_MUL64 + 2 * OPS_ADD64 + 2 * OPS_ADD64 + 2 * OPS_MUL64 + 4 * OPS_ADD64)
+    ops += 2 * Rn * n * (5 * OPS_MUL64 + 8 * OPS_ADD64)
+    return nbytes, ops
+
+
+def lazy_input(t, shape, factor, gen):
+    """Uniform values in [0, factor * q) per limb, on the card."""
+    bound = t.q * factor                                   # (k, 1)
+    raw = torch.randint(0, 1 << 62, shape, dtype=torch.int64, device="cuda", generator=gen)
+    return raw % bound
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from seal_tpu_torch import CoeffModulus, EncryptionParameters, SchemeType, SealContext, SecurityLevel
+    from seal_tpu_torch import golden
+    from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_to_numpy
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.ntt_tables import build_limb_tables
+    from seal_tpu_torch.ops import cuda_build
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
+    from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
+    from seal_tpu_torch.ops.rns import slice_limbs
+
+    t_start = time.time()
+    # ---- phase 1: setup --------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    card_line = smi[0].strip()
+    print("[setup] card (nvidia-smi name, power.limit):")
+    print(card_line)
+    print(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    t0 = time.time()
+    cuda_build.build_all()
+    print(f"[setup] kernels built from {os.path.relpath(cuda_build.CSRC, ROOT)} in {time.time() - t0:.1f} s")
+    for name in cuda_build.SOURCES:
+        log = cuda_build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            for line in log.read_text(errors="replace").splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[setup] ptxas {name}: {line.strip()}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+
+    def context(n, bits, expand=True):
+        parms = EncryptionParameters(SchemeType.CKKS)
+        parms.set_poly_modulus_degree(n)
+        parms.set_coeff_modulus(CoeffModulus.create(n, bits))
+        return SealContext(parms, expand, SecurityLevel.NONE)
+
+    ctx = context(golden.GOLDEN_N, list(golden.GOLDEN_BITS))
+    cd = ctx.first_context_data()
+    key_cd = ctx.key_context_data()
+    first_t = cd.limb_tables()
+    key_t = key_cd.limb_tables()
+    k = len(cd.parms.coeff_modulus)
+    log_n = cd.log_n
+
+    max_err = {"ntt": 0, "switch_key": 0}
+
+    # ---- phase 2: kernel A vs plain --------------------------------------
+    # (label, tables, shape, inverse, on the port's main path per request)
+    cases = [
+        ("key switch: iNTT of the target", first_t, (k, 1 << log_n), True, True),
+        ("key switch: iNTT mod the special prime", slice_limbs(key_t, k, k + 1), (2, 1, 1 << log_n), True, True),
+        ("key switch: tail NTT", slice_limbs(key_t, 0, k), (2, k, 1 << log_n), False, True),
+        ("rescale: iNTT mod q_last, both polys", slice_limbs(first_t, k - 1, k), (2, 1, 1 << log_n), True, True),
+        ("rescale: NTT, both polys", slice_limbs(first_t, 0, k - 1), (2, k - 1, 1 << log_n), False, True),
+        ("rescale: iNTT mod q_last, one poly", slice_limbs(first_t, k - 1, k), (1, 1 << log_n), True, False),
+        ("rescale: NTT, one poly", slice_limbs(first_t, 0, k - 1), (k - 1, 1 << log_n), False, False),
+    ]
+    mods16 = CoeffModulus.create(16384, list(golden.GOLDEN_BITS))
+    t16 = build_limb_tables(14, mods16, device="cuda")
+    cases.append(("N=16384 NTT", t16, (2, 5, 16384), False, False))
+    cases.append(("N=16384 iNTT", t16, (2, 5, 16384), True, False))
+
+    ntt_totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    for label, t, shape, inverse, on_path in cases:
+        x = lazy_input(t, shape, 2 if inverse else 4, gen)
+        plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
+        got = ntt_cuda(x, t, inverse)
+        want = plain_fn()
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"kernel A disagrees with its plain version on {label} {shape}: max abs err {err}")
+        max_err["ntt"] = max(max_err["ntt"], err)
+        ms = cuda_ms(lambda: ntt_cuda(x, t, inverse), 200)
+        plain_ms = cuda_ms(plain_fn, 10, warmup=1)
+        rows = x.numel() // shape[-1]
+        nbytes, ops = ntt_work(rows, shape[-2], t.log_n)
+        b, by = bound_ms(nbytes, ops)
+        print(f"[kernel A] {label} {'inverse' if inverse else 'forward'} {tuple(shape)}: bit-exact; "
+              f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by})")
+        if on_path:
+            ntt_totals["ms"] += ms
+            ntt_totals["plain_ms"] += plain_ms
+            ntt_totals["bytes"] += nbytes
+            ntt_totals["ops"] += ops
+
+    # ---- phase 3: kernel B vs plain --------------------------------------
+    sk_main = {}
+
+    def sk_case(label, context_, level_cd, key_rows, diag, main=False):
+        ev = Evaluator(context_)
+        plan = ev._plan(level_cd)
+        D = plan.D
+        n = level_cd.parms.poly_modulus_degree
+        sel = plan.sel_tables
+        Rn = sel.q.shape[0]
+        level_t = level_cd.limb_tables()
+        t_n = lazy_input(level_t, (D, n), 1, gen)
+        t_c = ntt_inverse(t_n, level_t)
+        t_n_arg = t_n if diag else None
+        key = lazy_input(sel, (2, key_rows, Rn, n), 1, gen)
+        got = switch_key_contract_cuda(t_c, t_n_arg, key, sel, plan.need_reduce)
+        want = switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"kernel B disagrees with its plain version on {label}: max abs err {err}")
+        max_err["switch_key"] = max(max_err["switch_key"], err)
+        ms = cuda_ms(lambda: switch_key_contract_cuda(t_c, t_n_arg, key, sel, plan.need_reduce), 100)
+        plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce), 5, warmup=1)
+        nbytes, ops = switch_key_work(D, key_rows, Rn, level_cd.log_n, diag)
+        b, by = bound_ms(nbytes, ops)
+        print(f"[kernel B] {label} (D={D}, key rows {key_rows}, Rn={Rn}, N={n}, diagonal {diag}): bit-exact; "
+              f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by})")
+        if main:
+            sk_main.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+    sk_case("main path", ctx, cd, k, True, main=True)
+    sk_case("no diagonal", ctx, cd, k, False)
+    sk_case("next level, key trimmed", ctx, cd.next_context_data, k, True)
+    wide = context(1024, [40] * 67, expand=False)
+    sk_case("wide chain, Barrett guard", wide, wide.first_context_data(), 66, True)
+
+    # ---- phase 4: the slice ----------------------------------------------
+    requests = 8
+    kc0, kc1 = golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)
+    rk = relin_keys_from_numpy([(kc0, kc1)], ctx.key_parms_id, "cuda")
+    scale = 2.0 ** 40
+    cts = []
+    for r in range(requests):
+        d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)
+        cts.append((ciphertext_from_numpy(d1, ctx.first_parms_id, True, scale, "cuda"),
+                    ciphertext_from_numpy(d2, ctx.first_parms_id, True, scale, "cuda")))
+
+    def serve(ev):
+        outs = []
+        for a, b in cts:
+            outs.append(ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk)))
+        return outs
+
+    ev_plain = Evaluator(ctx, plain=True)
+    serve(ev_plain)                                     # warm-up: plans and tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = serve(ev_plain)
+    torch.cuda.synchronize()
+    plain_req_ms = (time.perf_counter() - t0) * 1e3 / requests
+
+    ev = Evaluator(ctx)
+    serve(ev)                                           # warm-up
+    torch.cuda.synchronize()
+    ntt_cuda.launches = 0
+    switch_key_contract_cuda.launches = 0
+    t0 = time.perf_counter()
+    outs = serve(ev)
+    torch.cuda.synchronize()
+    req_ms = (time.perf_counter() - t0) * 1e3 / requests
+    launches = {"ntt": ntt_cuda.launches, "switch_key": switch_key_contract_cuda.launches}
+
+    # Kernel A per request: iNTT of the target, iNTT mod the special prime,
+    # the tail NTT, and the rescale's iNTT and NTT over both polys at once.
+    check(launches["ntt"] == 5 * requests, f"kernel A launched {launches['ntt']} times, expected {5 * requests}")
+    check(launches["switch_key"] == requests,
+          f"kernel B launched {launches['switch_key']} times, expected {requests}")
+    for r, (got, want) in enumerate(zip(outs, ref)):
+        check(got.parms_id == cd.next_context_data.parms_id and got.scale == scale * scale / cd.coeff_modulus_values[-1],
+              f"request {r}: wrong level or scale")
+        check(tuple(got.data.shape) == (2, k - 1, 1 << log_n), f"request {r}: shape {tuple(got.data.shape)}")
+        check(torch.equal(got.data, want.data), f"request {r}: kernel path differs from the plain path on the card")
+    q_rest = cd.next_context_data.limb_tables().q
+    check(bool(((outs[0].data >= 0) & (outs[0].data < q_rest)).all()), "output residues out of range")
+    dig = golden.digest(u64_to_numpy(outs[0].data))
+    check(dig == golden.GOLDEN_DIGEST, f"golden digest mismatch: {dig}")
+    print(f"[slice] {requests} requests of multiply -> relinearize -> rescale_to_next at N={1 << log_n}, "
+          f"bits {list(golden.GOLDEN_BITS)}: equal to the plain path on the card; request 1 matches the "
+          f"golden digest of the JAX package")
+    print(f"[slice] launches: kernel A {launches['ntt']} ({launches['ntt'] // requests} per request), "
+          f"kernel B {launches['switch_key']} ({launches['switch_key'] // requests} per request)")
+    print(f"[slice] kernels: {req_ms:.3f} ms per request, {1e3 / req_ms:.1f} requests/s; "
+          f"plain path on the card: {plain_req_ms:.3f} ms per request")
+    repeats = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        serve(ev)
+        torch.cuda.synchronize()
+        repeats.append((time.perf_counter() - t0) * 1e3 / requests)
+    repeats.sort()
+    print(f"[slice] 5 more runs of {requests} requests: ms per request min {repeats[0]:.3f}, "
+          f"median {repeats[2]:.3f}, max {repeats[-1]:.3f} (median {1e3 / repeats[2]:.1f} requests/s)")
+
+    # Where the time goes: device time by kernel over the same requests.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(ev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device_events:
+        print("[profile] the profiler recorded no device time: not measured")
+    else:
+        by_name = {}
+        for e in device_events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        busy_us = sum(by_name.values())
+        ntt_us = sum(v for name, v in by_name.items() if "ntt_forward_kernel" in name or "ntt_inverse_kernel" in name)
+        sk_us = sum(v for name, v in by_name.items() if "switch_key_kernel" in name)
+        print(f"[profile] {requests} requests under the profiler: wall {wall_us / 1e3:.3f} ms, "
+              f"{len(device_events)} kernel launches, device busy {busy_us / 1e3:.3f} ms "
+              f"({100 * busy_us / wall_us:.1f}% of wall); kernel A {ntt_us / 1e3:.3f} ms, "
+              f"kernel B {sk_us / 1e3:.3f} ms, other kernels (plain PyTorch elementwise arithmetic, copies) "
+              f"{(busy_us - ntt_us - sk_us) / 1e3:.3f} ms")
+        for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"[profile]   {v / 1e3:9.3f} ms  {name[:100]}")
+
+    b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
+    kernels = {"kernels": [
+        {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
+         "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:227", "launches": launches["ntt"],
+         "max_abs_err": max_err["ntt"], "ms": ntt_totals["ms"], "plain_ms": ntt_totals["plain_ms"],
+         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None},
+        {"name": "switch_key", "route": "cuda", "source": "seal_tpu_torch/csrc/switch_key.cu",
+         "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
+         "max_abs_err": max_err["switch_key"], "ms": sk_main["ms"], "plain_ms": sk_main["plain_ms"],
+         "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"], "library_ms": None},
+    ]}
+    print(f"[done] all phases passed in {time.time() - t_start:.1f} s; kernel A's ms, plain_ms and bound_ms "
+          f"sum the five calls of one request")
+    print(card_line)
+    print(json.dumps(kernels))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,64 @@
+"""Carry state across from the JAX package, as numpy uint64 arrays.
+
+The JAX package holds a u64 array as a (lo, hi) pair of uint32 arrays;
+``seal_tpu.ops.u64.to_np_u64`` joins it into one numpy uint64 array, and
+the functions here turn such arrays into the port's objects and back.  The
+port itself never imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .data import Ciphertext, RelinKeys
+from .ntt_tables import u64_tensor
+from .params import ParmsId
+
+
+def u64_from_numpy(array: np.ndarray, device) -> torch.Tensor:
+    """numpy uint64 -> int64 tensor with the same bits on ``device``."""
+    if np.asarray(array).dtype != np.uint64:
+        raise ValueError(f"expected a uint64 array, got {np.asarray(array).dtype}")
+    return u64_tensor(array, device)
+
+
+def u64_to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    """int64 tensor -> numpy uint64 with the same bits."""
+    return tensor.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def ciphertext_from_numpy(data: np.ndarray, parms_id: ParmsId, is_ntt_form: bool, scale: float,
+                          device, correction_factor: int = 1) -> Ciphertext:
+    """(size, k, n) uint64 data plus metadata -> Ciphertext on ``device``."""
+    if np.ndim(data) != 3:
+        raise ValueError("ciphertext data must have shape (size, k, n)")
+    return Ciphertext(u64_from_numpy(data, device), tuple(parms_id), bool(is_ntt_form),
+                      float(scale), int(correction_factor))
+
+
+def ciphertext_to_numpy(ct: Ciphertext) -> Tuple[np.ndarray, ParmsId, bool, float]:
+    return u64_to_numpy(ct.data), ct.parms_id, ct.is_ntt_form, ct.scale
+
+
+def relin_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
+                          parms_id: ParmsId, device) -> RelinKeys:
+    """Per key power (index = power - 2): None or (c0, c1), each (D, k_key, n)."""
+    rk = RelinKeys()
+    rk.parms_id = tuple(parms_id)
+    for entry in keys:
+        if entry is None:
+            rk.keys.append(None)
+            continue
+        c0, c1 = entry
+        if np.shape(c0) != np.shape(c1) or np.ndim(c0) != 3:
+            raise ValueError("key components must both have shape (D, k_key, n)")
+        rk.keys.append({"c0": u64_from_numpy(c0, device), "c1": u64_from_numpy(c1, device)})
+    return rk
+
+
+def relin_keys_to_numpy(rk: RelinKeys) -> Tuple[List[Optional[Tuple[np.ndarray, np.ndarray]]], ParmsId]:
+    keys = [None if k is None else (u64_to_numpy(k["c0"]), u64_to_numpy(k["c1"])) for k in rk.keys]
+    return keys, rk.parms_id

@@ -1,0 +1,77 @@
+"""Deterministic pipeline inputs and the golden digest of the main path.
+
+The inputs come from a splitmix64 counter (Steele, Lea and Flood, 2014)
+computed in numpy uint64, reduced mod each modulus; they depend on no
+library's random stream, so the JAX package, the port on the CPU and the
+port on the card all see the same bits.  Uniform residues stand in for
+ciphertexts and keys: the server path's arithmetic is the same on any
+residues, and a digest of its output ties each implementation to the
+others.
+
+``GOLDEN_DIGEST`` is the SHA-256 of the little-endian u64 bytes of
+``jax.jit(seal_tpu.pipeline.build_ckks_mult_relin_rescale(ctx))`` on the
+inputs ``key_inputs(ctx, GOLDEN_KEY_SEED)`` and
+``request_inputs(ctx, GOLDEN_REQUEST_SEED)``, for CKKS N=8192 with
+coefficient-modulus bits [60, 40, 40, 40, 60], ``SecurityLevel.NONE`` and
+the chain expanded (the context of ``__graft_entry__._build``).  It was
+computed once with the JAX package on the CPU; ``tests/test_torch_slice.py``
+recomputes it from both the JAX package and the port's plain path, and
+``chip_smoke.py`` from the kernels on the card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Tuple
+
+import numpy as np
+
+from .context import SealContext
+
+GOLDEN_N = 8192
+GOLDEN_BITS = (60, 40, 40, 40, 60)
+GOLDEN_KEY_SEED = 0
+GOLDEN_REQUEST_SEED = 1
+GOLDEN_DIGEST = "07ad955fcfa99447cf40fde7c64159c6b2b7a2e658684cdd61dc917dd569b6eb"
+
+_GAMMA = np.uint64(0x9E3779B97F4A7C15)
+_M1 = np.uint64(0xBF58476D1CE4E5B9)
+_M2 = np.uint64(0x94D049BB133111EB)
+
+
+def splitmix64(seed: int, count: int) -> np.ndarray:
+    """The first ``count`` outputs of splitmix64 started at ``seed``."""
+    with np.errstate(over="ignore"):
+        z = np.uint64(seed) + _GAMMA * np.arange(1, count + 1, dtype=np.uint64)
+        z = (z ^ (z >> np.uint64(30))) * _M1
+        z = (z ^ (z >> np.uint64(27))) * _M2
+        return z ^ (z >> np.uint64(31))
+
+
+def _residues(seed: int, moduli, lead: Tuple[int, ...], n: int) -> np.ndarray:
+    """(*lead, k, n) uint64, element [..., i, :] reduced mod moduli[i]."""
+    q = np.array(moduli, dtype=np.uint64).reshape(-1, 1)
+    count = int(np.prod(lead, dtype=np.int64)) * len(moduli) * n
+    return splitmix64(seed, count).reshape(*lead, len(moduli), n) % q
+
+
+def request_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Two size-2 NTT-form ciphertexts' data at the first level: (2, k, n) each."""
+    cd = context.first_context_data()
+    n = cd.parms.poly_modulus_degree
+    both = _residues(seed, cd.coeff_modulus_values, (2, 2), n)
+    return both[0], both[1]
+
+
+def key_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A relinearization key's two components: (D, k_key, n) each."""
+    D = len(context.first_context_data().parms.coeff_modulus)
+    key_cd = context.key_context_data()
+    n = key_cd.parms.poly_modulus_degree
+    both = _residues(seed, key_cd.coeff_modulus_values, (2, D), n)
+    return both[0], both[1]
+
+
+def digest(out: np.ndarray) -> str:
+    """SHA-256 of a uint64 array's little-endian bytes."""
+    return hashlib.sha256(np.ascontiguousarray(out, dtype="<u8").tobytes()).hexdigest()

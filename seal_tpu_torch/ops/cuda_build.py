@@ -1,0 +1,97 @@
+"""Build and load the hand-written CUDA kernels (``seal_tpu_torch/csrc``).
+
+Each ``.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  Nothing
+builds when this module is imported: the first call to :func:`load` (or
+:func:`build_all`) starts one ``nvcc`` per source, all at once, and waits
+for them.  Libraries land in ``seal_tpu_torch/build/`` under a name that
+carries a hash of every source, so an edited kernel is rebuilt and a stale
+library is never loaded.  ``nvcc -Xptxas -v`` reports (registers, shared
+memory, spills) are kept beside each library as ``<name>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+SOURCES = ("ntt", "switch_key")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_source_hash()}.so"
+
+
+def build_all() -> None:
+    """Compile every source whose library is missing, in parallel."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [name for name in SOURCES if not library_path(name).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".tmp{os.getpid()}")
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(tmp), str(CSRC / f"{name}.cu"),
+        ]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_bytes(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, library_path(name))
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it at first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        if not library_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(library_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

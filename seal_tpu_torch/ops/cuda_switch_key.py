@@ -1,0 +1,131 @@
+"""Kernel B, the fused key-switch contraction, and its plain version.
+
+``switch_key_contract_cuda`` wraps ``csrc/switch_key.cu``, which replaces
+``seal_tpu/ops/pallas_switch_key.py:_sk_kernel``.
+``switch_key_contract_plain`` is the staged formulation of
+``seal_tpu/evaluator.py:594-630``: reduce, batched forward NTT, u128
+contraction over the decomposition axis with a Barrett guard every 64
+summands, final Barrett.  Both take the contract of
+``seal_tpu.ops.pallas_switch_key.switch_key_contract``:
+
+* ``t_c``: (D, n) coefficient-form source limbs, limb j < q_j;
+* ``t_n``: (D, n) the same source in NTT form (the i == j fast path of
+  evaluator.cpp:2686-2692), or None;
+* ``key``: (2, D', Rn, n) the selected key columns, D' >= D; rows beyond D
+  are not used (a key made for a higher level);
+* ``t``: ``LimbTables`` over the Rn output moduli;
+* ``need_reduce``: (D, Rn) bool, True where q_j > q_i.
+
+and return (2, Rn, n) in NTT form, in [0, q_i).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..ntt_tables import LimbTables
+from . import cuda_build
+from . import u64 as U
+from .cuda_ntt import MAX_LOG_N
+from .ntt import ntt_forward
+
+_ACC_WINDOW = 64  # lazy u128 summands between Barrett guards (defines.h:66)
+_MIN_LOG_N = 3    # the kernel gives each thread 8 coefficients
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def switch_key_contract_plain(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
+                              need_reduce: torch.Tensor) -> torch.Tensor:
+    """The staged formulation, in plain PyTorch on the tensors' device."""
+    D, n = t_c.shape
+    key = key[:, :D]
+    tt = t_c[:, None, :]                                         # (D, 1, n)
+    reduced = U.barrett_reduce_64(tt, t.q, t.ratio_hi)           # (D, Rn, n)
+    t_op = torch.where(need_reduce[:, :, None], reduced, tt)
+    t_op = ntt_forward(t_op, t, lazy=True)                       # < 4q
+    if t_n is not None:
+        diag = torch.arange(D, device=t_c.device)
+        t_op[diag, diag] = t_n
+    lo = torch.zeros_like(key[:, 0])
+    acc = (lo, torch.zeros_like(lo))
+    for j in range(D):
+        acc = U.add128(acc, U.mul64_wide(t_op[j], key[:, j]))
+        if (j + 1) % _ACC_WINDOW == 0 and j + 1 < D:
+            acc = (U.barrett_reduce_128(acc, t.q, t.ratio_lo, t.ratio_hi), torch.zeros_like(lo))
+    return U.barrett_reduce_128(acc, t.q, t.ratio_lo, t.ratio_hi)
+
+
+@functools.cache
+def _lib():
+    lib = cuda_build.load("switch_key")
+    lib.seal_switch_key_contract.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.seal_switch_key_contract.restype = _I
+    return lib
+
+
+def _check_inputs(t_c, t_n, key, t, need_reduce):
+    dev = t_c.device
+    if not t_c.is_cuda:
+        raise ValueError("switch_key_contract_cuda takes CUDA tensors")
+    tensors = {"t_c": t_c, "key": key}
+    if t_n is not None:
+        tensors["t_n"] = t_n
+    for name, a in tensors.items():
+        if a.device != dev or a.dtype != torch.int64 or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int64 tensor on {dev}")
+    if t_c.dim() != 2:
+        raise ValueError("t_c must have shape (D, n)")
+    D, n = t_c.shape
+    if t_n is not None and t_n.shape != t_c.shape:
+        raise ValueError("t_n must have the shape of t_c")
+    if key.dim() != 4 or key.shape[0] != 2 or key.shape[1] < D or key.shape[3] != n:
+        raise ValueError(f"key must have shape (2, D' >= {D}, Rn, {n}), got {tuple(key.shape)}")
+    Rn = key.shape[2]
+    if t.q.shape[0] != Rn or n != 1 << t.log_n:
+        raise ValueError("tables must cover the Rn output moduli at the data's n")
+    if not (_MIN_LOG_N <= t.log_n <= MAX_LOG_N):
+        raise ValueError(f"switch_key_contract_cuda supports {1 << _MIN_LOG_N} <= n <= {1 << MAX_LOG_N}, got n={n}")
+    if need_reduce.shape != (D, Rn) or need_reduce.dtype != torch.bool or need_reduce.device != dev:
+        raise ValueError(f"need_reduce must be a ({D}, {Rn}) bool tensor on {dev}")
+    for name in ("fwd_op", "fwd_qt", "q", "ratio_lo", "ratio_hi"):
+        a = getattr(t, name)
+        if a.device != dev or a.dtype != torch.int64 or not a.is_contiguous():
+            raise ValueError(f"table {name} must be a contiguous int64 tensor on {dev}")
+
+
+def switch_key_contract_cuda(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
+                             need_reduce: torch.Tensor) -> torch.Tensor:
+    """Kernel B on the card; one launch, one block per output limb."""
+    _check_inputs(t_c, t_n, key, t, need_reduce)
+    lib = _lib()
+    D, n = t_c.shape
+    Rn = key.shape[2]
+    need_reduce = need_reduce.contiguous()
+    out = torch.empty((2, Rn, n), dtype=torch.int64, device=t_c.device)
+    with torch.cuda.device(t_c.device):
+        stream = torch.cuda.current_stream(t_c.device).cuda_stream
+        rc = lib.seal_switch_key_contract(
+            t_c.data_ptr(), None if t_n is None else t_n.data_ptr(), key.data_ptr(),
+            need_reduce.data_ptr(), t.fwd_op.data_ptr(), t.fwd_qt.data_ptr(), t.q.data_ptr(),
+            t.ratio_lo.data_ptr(), t.ratio_hi.data_ptr(), out.data_ptr(),
+            D, key.shape[1], Rn, t.log_n, stream)
+        switch_key_contract_cuda.launches += 1
+    cuda_build.check(rc, "switch_key_contract_cuda")
+    return out
+
+
+switch_key_contract_cuda.launches = 0
+
+
+def switch_key_contract(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
+                        need_reduce: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Kernel B for tensors on the card, the plain version on the CPU
+    (or on the card with ``plain=True``)."""
+    if t_c.is_cuda and not plain:
+        return switch_key_contract_cuda(t_c, t_n, key, t, need_reduce)
+    return switch_key_contract_plain(t_c, t_n, key, t, need_reduce)

@@ -1,0 +1,169 @@
+"""The port's CKKS server slice against the JAX package, end to end.
+
+(a) ``build_ckks_mult_relin_rescale`` at N=8192, bits [60, 40, 40, 40, 60]
+    on the golden splitmix64 inputs: the port on the CPU equals
+    ``jax.jit(seal_tpu.pipeline.build_ckks_mult_relin_rescale(ctx))`` bit
+    for bit, and both give ``golden.GOLDEN_DIGEST``.
+(b) N=1024 with real keys and ciphertexts from ``__graft_entry__._build``,
+    carried across with ``convert``: Evaluator multiply -> relinearize ->
+    rescale_to_next equals the JAX package's in data, scale and parms_id.
+(c) importing every module of the port loads neither JAX nor ``seal_tpu``.
+(d) a context with no device on a machine without CUDA raises.
+
+Every comparison is exact equality of reduced residues: the slice is
+integer arithmetic.
+"""
+
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from seal_tpu.context import SealContext as JaxContext
+from seal_tpu.data import Ciphertext as JaxCiphertext, RelinKeys as JaxRelinKeys
+from seal_tpu.evaluator import Evaluator as JaxEvaluator
+from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
+from seal_tpu.ops import u64 as JU
+from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as JaxScheme
+from seal_tpu.pipeline import build_ckks_mult_relin_rescale as jax_pipeline
+
+import seal_tpu_torch as P
+from seal_tpu_torch import golden
+from seal_tpu_torch.convert import (
+    ciphertext_from_numpy, ciphertext_to_numpy, relin_keys_from_numpy, relin_keys_to_numpy,
+    u64_from_numpy, u64_to_numpy,
+)
+from seal_tpu_torch.evaluator import Evaluator
+from seal_tpu_torch.pipeline import build_ckks_mult_relin_rescale
+
+
+def _port_context(n, bits, device="cpu"):
+    parms = P.EncryptionParameters(P.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(P.CoeffModulus.create(n, bits))
+    return P.SealContext(parms, True, P.SecurityLevel.NONE, device=device)
+
+
+@pytest.fixture(scope="module")
+def golden_outputs():
+    """Outputs of the JAX pipeline and of the port's plain path (CPU) at
+    N=8192 on the golden inputs, and the port's context."""
+    n, bits = golden.GOLDEN_N, list(golden.GOLDEN_BITS)
+    jp = JaxParameters(JaxScheme.CKKS)
+    jp.set_poly_modulus_degree(n)
+    jp.set_coeff_modulus(JaxCoeffModulus.create(n, bits))
+    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    pctx = _port_context(n, bits)
+    assert jctx.first_parms_id == pctx.first_parms_id
+    d1, d2 = golden.request_inputs(pctx, golden.GOLDEN_REQUEST_SEED)
+    kc0, kc1 = golden.key_inputs(pctx, golden.GOLDEN_KEY_SEED)
+    args = (d1, d2, kc0, kc1)
+    jax_out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
+    port_out = u64_to_numpy(build_ckks_mult_relin_rescale(pctx)(*(u64_from_numpy(a, "cpu") for a in args)))
+    return jax_out, port_out, pctx
+
+
+def test_jax_pipeline_gives_golden_digest(golden_outputs):
+    jax_out, _, _ = golden_outputs
+    assert jax_out.shape == (2, len(golden.GOLDEN_BITS) - 2, golden.GOLDEN_N)
+    assert golden.digest(jax_out) == golden.GOLDEN_DIGEST
+
+
+def test_port_pipeline_equals_jax_at_n8192(golden_outputs):
+    jax_out, port_out, pctx = golden_outputs
+    np.testing.assert_array_equal(port_out, jax_out)
+    assert golden.digest(port_out) == golden.GOLDEN_DIGEST
+    q = np.array(pctx.first_context_data().next_context_data.coeff_modulus_values, dtype=np.uint64)
+    assert (port_out < q[None, :, None]).all()
+
+
+@pytest.fixture(scope="module")
+def evaluator_outputs():
+    """JAX Evaluator and the port's Evaluator on real N=1024 ciphertexts."""
+    from __graft_entry__ import _build
+
+    bits = [60, 40, 40, 40, 60]
+    jctx, _, args = _build(1024, bits)
+    scale = 2.0 ** bits[1]
+    jct1 = JaxCiphertext(data=args[0], parms_id=jctx.first_parms_id, is_ntt_form=True, scale=scale)
+    jct2 = JaxCiphertext(data=args[1], parms_id=jctx.first_parms_id, is_ntt_form=True, scale=scale)
+    jrk = JaxRelinKeys()
+    jrk.parms_id = jctx.key_parms_id
+    jrk.keys = [{"c0": args[2], "c1": args[3]}]
+    jev = JaxEvaluator(jctx)
+    jout = jev.rescale_to_next(jev.relinearize(jev.multiply(jct1, jct2), jrk))
+
+    pctx = _port_context(1024, bits)
+    pct1 = ciphertext_from_numpy(JU.to_np_u64(args[0]), jct1.parms_id, True, scale, "cpu")
+    pct2 = ciphertext_from_numpy(JU.to_np_u64(args[1]), jct2.parms_id, True, scale, "cpu")
+    prk = relin_keys_from_numpy([(JU.to_np_u64(args[2]), JU.to_np_u64(args[3]))], jrk.parms_id, "cpu")
+    pev = Evaluator(pctx)
+    pout = pev.rescale_to_next(pev.relinearize(pev.multiply(pct1, pct2), prk))
+    return jout, pout
+
+
+def test_evaluator_equals_jax_at_n1024(evaluator_outputs):
+    jout, pout = evaluator_outputs
+    data, parms_id, is_ntt_form, scale = ciphertext_to_numpy(pout)
+    np.testing.assert_array_equal(data, jout.to_np())
+    assert parms_id == jout.parms_id
+    assert is_ntt_form == jout.is_ntt_form
+    assert scale == jout.scale
+
+
+def test_convert_round_trip():
+    rng = np.random.default_rng(4)
+    data = rng.integers(0, np.iinfo(np.uint64).max, (2, 3, 16), dtype=np.uint64, endpoint=True)
+    ct = ciphertext_from_numpy(data, (1, 2, 3, 4), True, 2.0 ** 40, "cpu")
+    back, pid, ntt, scale = ciphertext_to_numpy(ct)
+    np.testing.assert_array_equal(back, data)
+    assert (pid, ntt, scale) == ((1, 2, 3, 4), True, 2.0 ** 40)
+    rk = relin_keys_from_numpy([None, (data, data[::-1].copy())], (5, 6, 7, 8), "cpu")
+    keys, pid = relin_keys_to_numpy(rk)
+    assert keys[0] is None and pid == (5, 6, 7, 8)
+    np.testing.assert_array_equal(keys[1][0], data)
+    np.testing.assert_array_equal(keys[1][1], data[::-1])
+    with pytest.raises(ValueError):
+        ciphertext_from_numpy(data.astype(np.int64), (1, 2, 3, 4), True, 1.0, "cpu")
+
+
+def test_port_imports_neither_jax_nor_seal_tpu():
+    code = (
+        "import sys, pkgutil, importlib, seal_tpu_torch\n"
+        "for m in pkgutil.walk_packages(seal_tpu_torch.__path__, 'seal_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'seal_tpu'"
+        " or m.startswith('seal_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('seal_tpu_torch')]))\n"
+    )
+    root = __file__.rsplit("/tests/", 1)[0]
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20   # every module of the port was imported
+
+
+def test_context_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parms = P.EncryptionParameters(P.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(1024)
+    parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40]))
+    with pytest.raises(RuntimeError):
+        P.SealContext(parms, True, P.SecurityLevel.NONE)
+    assert P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu").device.type == "cpu"
+
+
+def test_unported_schemes_raise_not_implemented():
+    parms = P.EncryptionParameters(P.SchemeType.BFV)
+    parms.set_poly_modulus_degree(1024)
+    parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40, 40]))
+    parms.set_plain_modulus(P.Modulus(65537))
+    ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
+    ev = Evaluator(ctx)
+    data = torch.zeros((2, 2, 1024), dtype=torch.int64)
+    ct = P.Ciphertext(data, ctx.first_parms_id, False, 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ev.multiply(ct, ct)
