@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's CKKS server path on one NVIDIA card, kernels checked.
+"""Drive the port's CKKS paths on one NVIDIA card, kernels checked.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and
@@ -18,7 +18,24 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
    requests at CKKS N=8192, bits [60, 40, 40, 40, 60], equal to the plain
    path on the card, the first request equal to the golden digest of the
    JAX package's output, and the launch counters showing both kernels on
-   every request; then ms per request, requests/s and a profiler split.
+   every request; then ms per request, requests/s and a profiler split;
+5. the four-step stage kernel against its plain version, bit-exact, at
+   every stage shape of one N=65536 request (512/128 and 128/512, with and
+   without the twiddle) and at N=32768 (256/128) and N=131072 (512/256),
+   then whole transforms on the card against the butterflies, with the
+   kernel's and the plain version's times and the bound;
+6. the staged key switch at N=65536 (D=3, Rn=4: the decompose and the
+   contraction in plain PyTorch, the NTT on the stage kernel) against the
+   plain version on the card;
+7. a CKKS user's whole computation at N=65536, bits [60, 40, 40, 60], on a
+   context on the card with a seeded BLAKE2XB factory: keygen, encode of
+   two seeded vectors, encryption (secret key, and public key for one of
+   them), 4 requests of multiply -> relinearize -> rescale_to_next, decrypt
+   and decode; every key, ciphertext and plaintext equal to the same steps
+   on the plain path on the card, the splitmix request equal to the JAX
+   package's N=65536 digest, the decoded products within 1e-3, the stage
+   kernel's launches counted per step (kernels A and B never run at this
+   size); then the steps' times and a profiler split of the requests.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -32,6 +49,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -100,6 +118,32 @@ def switch_key_work(D, key_rows, Rn, log_n, diag):
     return nbytes, ops
 
 
+def stage_work(rows, k, spec, twiddle):
+    """Bytes and 32-bit operations of the FUNCTION one stage computes: an
+    M-point transform of every column (its butterflies), plus the twiddle.
+    Bytes: the data in and out, the twiddle pair, and a root table pair of
+    M entries per limb, the same rule as kernel A's.  The kernel's dense
+    product reads the (k, M, K) matrix and does M*K multiply-adds per column
+    instead, but a faster design is held to the same yardstick."""
+    n = spec.M * spec.ncols
+    nbytes = 8 * (2 * rows * n + 2 * k * spec.M + (2 * k * n if twiddle else 0))
+    log_m = spec.M.bit_length() - 1
+    ops = rows * spec.ncols * (spec.M // 2) * log_m * OPS_BUTTERFLY
+    if twiddle:
+        ops += rows * n * (3 * OPS_MUL64 + 2 * OPS_ADD64)
+    return nbytes, ops
+
+
+def device_split(prof, names):
+    """Device microseconds by kernel-name group from a profiler run."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    groups = {g: sum(v for name, v in by_name.items() if key in name) for g, key in names.items()}
+    return by_name, groups
+
+
 def lazy_input(t, shape, factor, gen):
     """Uniform values in [0, factor * q) per limb, on the card."""
     bound = t.q * factor                                   # (k, 1)
@@ -116,12 +160,18 @@ def main():
     from seal_tpu_torch import golden
     from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_to_numpy
     from seal_tpu_torch.evaluator import Evaluator
-    from seal_tpu_torch.ntt_tables import build_limb_tables
+    from seal_tpu_torch.ntt_tables import build_limb_tables, four_step_tables_for
     from seal_tpu_torch.ops import cuda_build
     from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
     from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
     from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
     from seal_tpu_torch.ops.rns import slice_limbs
+    from seal_tpu_torch import CKKSEncoder, Decryptor, Encryptor, KeyGenerator, PRNGType, UniformRandomGeneratorFactory
+    from seal_tpu_torch.ops import four_step as FS
+    from seal_tpu_torch.ops import ntt as NTT
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract
+    from seal_tpu_torch.random.prng import blake2xb
 
     t_start = time.time()
     # ---- phase 1: setup --------------------------------------------------
@@ -136,6 +186,9 @@ def main():
     t0 = time.time()
     cuda_build.build_all()
     print(f"[setup] kernels built from {os.path.relpath(cuda_build.CSRC, ROOT)} in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    blake2xb(64, b"")                                   # builds csrc/blake2.c with cc
+    print(f"[setup] host BLAKE2 library built in {time.time() - t0:.1f} s")
     for name in cuda_build.SOURCES:
         log = cuda_build.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -160,7 +213,7 @@ def main():
     k = len(cd.parms.coeff_modulus)
     log_n = cd.log_n
 
-    max_err = {"ntt": 0, "switch_key": 0}
+    max_err = {"ntt": 0, "switch_key": 0, "four_step_stage": 0}
 
     # ---- phase 2: kernel A vs plain --------------------------------------
     # (label, tables, shape, inverse, on the port's main path per request)
@@ -254,24 +307,26 @@ def main():
             outs.append(ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk)))
         return outs
 
-    ev_plain = Evaluator(ctx, plain=True)
-    serve(ev_plain)                                     # warm-up: plans and tables
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = serve(ev_plain)
-    torch.cuda.synchronize()
+    ev = Evaluator(ctx)
+    with NTT.plain_on_card():
+        serve(ev)                                       # warm-up: plans and tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = serve(ev)
+        torch.cuda.synchronize()
     plain_req_ms = (time.perf_counter() - t0) * 1e3 / requests
 
-    ev = Evaluator(ctx)
     serve(ev)                                           # warm-up
     torch.cuda.synchronize()
     ntt_cuda.launches = 0
     switch_key_contract_cuda.launches = 0
+    stage_cuda.launches = 0
     t0 = time.perf_counter()
     outs = serve(ev)
     torch.cuda.synchronize()
     req_ms = (time.perf_counter() - t0) * 1e3 / requests
     launches = {"ntt": ntt_cuda.launches, "switch_key": switch_key_contract_cuda.launches}
+    check(stage_cuda.launches == 0, f"the stage kernel ran {stage_cuda.launches} times at N=8192")
 
     # Kernel A per request: iNTT of the target, iNTT mod the special prime,
     # the tail NTT, and the rescale's iNTT and NTT over both polys at once.
@@ -295,14 +350,14 @@ def main():
     print(f"[slice] kernels: {req_ms:.3f} ms per request, {1e3 / req_ms:.1f} requests/s; "
           f"plain path on the card: {plain_req_ms:.3f} ms per request")
     repeats = []
-    for _ in range(5):
+    for _ in range(3):
         t0 = time.perf_counter()
         serve(ev)
         torch.cuda.synchronize()
         repeats.append((time.perf_counter() - t0) * 1e3 / requests)
     repeats.sort()
-    print(f"[slice] 5 more runs of {requests} requests: ms per request min {repeats[0]:.3f}, "
-          f"median {repeats[2]:.3f}, max {repeats[-1]:.3f} (median {1e3 / repeats[2]:.1f} requests/s)")
+    print(f"[slice] 3 more runs of {requests} requests: ms per request min {repeats[0]:.3f}, "
+          f"median {repeats[1]:.3f}, max {repeats[-1]:.3f} (median {1e3 / repeats[1]:.1f} requests/s)")
 
     # Where the time goes: device time by kernel over the same requests.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -328,6 +383,200 @@ def main():
         for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
             print(f"[profile]   {v / 1e3:9.3f} ms  {name[:100]}")
 
+
+    # ---- phase 5: the stage kernel vs plain ------------------------------
+    large = context(golden.LARGE_N, list(golden.LARGE_BITS))
+    lcd, lkey = large.first_context_data(), large.key_context_data()
+    lk = len(lcd.parms.coeff_modulus)
+    lt_first, lt_key = lcd.limb_tables(), lkey.limb_tables()
+    lt_next = lcd.next_context_data.limb_tables()
+    n_large = golden.LARGE_N
+    # (label, tables, shape, inverse, on the N=65536 request path)
+    transforms = [
+        ("key switch: iNTT of the target", lt_first, (lk, n_large), True, True),
+        ("key switch: NTT of the decomposition", lt_key, (lk, lk + 1, n_large), False, True),
+        ("key switch: iNTT mod the special prime", slice_limbs(lt_key, lk, lk + 1), (2, 1, n_large), True, True),
+        ("key switch: tail NTT", slice_limbs(lt_key, 0, lk), (2, lk, n_large), False, True),
+        ("rescale: iNTT mod q_last", slice_limbs(lt_first, lk - 1, lk), (2, 1, n_large), True, True),
+        ("rescale: NTT", lt_next, (2, lk - 1, n_large), False, True),
+        ("keygen: NTT at the key level", lt_key, (lk + 1, n_large), False, False),
+    ]
+    for log_n, bits in ((15, [60, 40, 40, 60]), (17, [60, 40, 40, 60])):
+        mods = CoeffModulus.create(1 << log_n, bits)
+        tt = build_limb_tables(log_n, mods, device="cuda")
+        transforms.append((f"N={1 << log_n} NTT", tt, (2, len(mods), 1 << log_n), False, False))
+        transforms.append((f"N={1 << log_n} iNTT", tt, (2, len(mods), 1 << log_n), True, False))
+
+    stage_totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "madds": 0, "b_bytes": 0}
+    for label, t, shape, inverse, on_path in transforms:
+        ft = four_step_tables_for(t)
+        x = lazy_input(t, shape, 2 if inverse else 4, gen)
+        specs = FS.inverse_specs(ft) if inverse else FS.forward_specs(ft)
+        mats = (ft.finv, ft.winv) if inverse else (ft.w, ft.f)
+        tws = ((ft.twi_op, ft.twi_qt) if inverse else (ft.tw_op, ft.tw_qt), None)
+        rows = x.numel() // shape[-1]
+        h = x
+        for which, (spec, b, tw) in enumerate(zip(specs, mats, tws)):
+            got = stage_cuda(h, b, ft, spec, tw)
+            want = FS.stage_plain(h, b, ft, spec, tw)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            check(err == 0, f"the stage kernel disagrees with its plain version on {label}, stage {which}: "
+                            f"max abs err {err}")
+            max_err["four_step_stage"] = max(max_err["four_step_stage"], err)
+            ms = cuda_ms(lambda: stage_cuda(h, b, ft, spec, tw), 20)
+            plain_ms = cuda_ms(lambda: FS.stage_plain(h, b, ft, spec, tw), 2, warmup=1)
+            nbytes, ops = stage_work(rows, t.q.shape[0], spec, tw is not None)
+            bnd, by = bound_ms(nbytes, ops)
+            madds = rows * spec.M * spec.K * spec.ncols
+            b_bytes = 8 * t.q.shape[0] * spec.M * spec.K
+            print(f"[stage] {label} {tuple(shape)} stage {which} ({spec.M}x{spec.K}, {spec.ncols} columns, "
+                  f"twiddle {tw is not None}): bit-exact; kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, "
+                  f"bound {bnd * 1e3:.3f} us ({by}; for information, the dense product does "
+                  f"{madds / 1e6:.1f} M multiply-adds and reads {b_bytes / 1e6:.2f} MB of matrix)")
+            if on_path:
+                stage_totals["ms"] += ms
+                stage_totals["plain_ms"] += plain_ms
+                stage_totals["bytes"] += nbytes
+                stage_totals["ops"] += ops
+                stage_totals["madds"] += madds
+                stage_totals["b_bytes"] += b_bytes
+            h = got
+        transform = NTT.inverse if inverse else NTT.forward
+        butterflies = ntt_inverse if inverse else ntt_forward
+        full = transform(x, t)
+        torch.cuda.synchronize()
+        check(torch.equal(full, butterflies(x, t)), f"the four-step transform differs from the butterflies on {label}")
+        fms = cuda_ms(lambda: transform(x, t), 10)
+        bms = cuda_ms(lambda: butterflies(x, t), 3, warmup=1)
+        print(f"[stage] {label}: the whole transform (2 launches) equals the butterflies; {fms * 1e3:.1f} us, "
+              f"butterflies in plain PyTorch {bms * 1e3:.1f} us")
+
+    # ---- phase 6: the staged key switch at N=65536 -----------------------
+    lplan = Evaluator(large)._plan(lcd)
+    lsel = lplan.sel_tables
+    t_n = lazy_input(lt_first, (lplan.D, n_large), 1, gen)
+    t_c = ntt_inverse(t_n, lt_first)
+    key = lazy_input(lsel, (2, lplan.D, lsel.q.shape[0], n_large), 1, gen)
+    got = switch_key_contract(t_c, t_n, key, lsel, lplan.need_reduce)
+    want = switch_key_contract_plain(t_c, t_n, key, lsel, lplan.need_reduce)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "the staged key switch differs from the plain version at N=65536")
+    sk_ms = cuda_ms(lambda: switch_key_contract(t_c, t_n, key, lsel, lplan.need_reduce), 10)
+    sk_plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n, key, lsel, lplan.need_reduce), 3, warmup=1)
+    print(f"[staged key switch] D={lplan.D}, Rn={lsel.q.shape[0]}, N={n_large}: equal to the plain version on the "
+          f"card; {sk_ms * 1e3:.1f} us (the NTT on the stage kernel, the rest plain PyTorch), "
+          f"plain {sk_plain_ms * 1e3:.1f} us")
+
+    # ---- phase 7: the CKKS round trip at N=65536 -------------------------
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n_large)
+    parms.set_coeff_modulus(CoeffModulus.create(n_large, list(golden.LARGE_BITS)))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, (1, 2, 3, 4, 5, 6, 7, 8)))
+    rctx = SealContext(parms, True, SecurityLevel.NONE)           # the default device: the card
+    slots = n_large // 2
+    rng = np.random.default_rng(2024)
+    vals_a = rng.uniform(-1.0, 1.0, slots)
+    vals_b = rng.uniform(-1.0, 1.0, slots)
+    round_requests = 4
+
+    def round_trip():
+        """Every step of the computation; returns its outputs and, per
+        step, (seconds, stage-kernel launches)."""
+        steps = {}
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            before, t0 = stage_cuda.launches, time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            steps[name] = (time.perf_counter() - t0, stage_cuda.launches - before)
+            return out
+
+        def keys():
+            kg = KeyGenerator(rctx)
+            return kg.secret_key, kg.create_relin_keys(), kg.create_public_key()
+
+        sk, rk, pk = step("keygen", keys)
+        enc = CKKSEncoder(rctx)
+        pa, pb = step("encode", lambda: (enc.encode(vals_a, scale), enc.encode(vals_b, scale)))
+        sym = Encryptor(rctx, secret_key=sk)
+        ca, cb, ca_pk = step("encrypt", lambda: (sym.encrypt_symmetric(pa), sym.encrypt_symmetric(pb),
+                                                 Encryptor(rctx, public_key=pk).encrypt(pa)))
+        ev = Evaluator(rctx)
+        pairs = [((ca, cb), (ca_pk, cb))[r % 2] for r in range(round_requests)]
+        prods = step("requests", lambda: [ev.rescale_to_next(ev.relinearize(ev.multiply(x, y), rk))
+                                          for x, y in pairs])
+        dec = Decryptor(rctx, sk)
+        plains = step("decrypt", lambda: [dec.decrypt(c) for c in prods])
+        values = step("decode", lambda: [enc.decode(p) for p in plains])
+        tensors = {"secret key": sk.data, "relin key c0": rk.key(2)["c0"], "relin key c1": rk.key(2)["c1"],
+                   "public key": pk.data.data, "plaintext a": pa.rns_data, "plaintext b": pb.rns_data,
+                   "ciphertext a": ca.data, "ciphertext b": cb.data, "ciphertext a (public key)": ca_pk.data}
+        tensors.update({f"product {r}": c.data for r, c in enumerate(prods)})
+        tensors.update({f"decrypted {r}": p.rns_data for r, p in enumerate(plains)})
+        return tensors, values, steps, (ev, rk, pairs)
+
+    with NTT.plain_on_card():
+        ref_tensors, ref_values, plain_steps, _ = round_trip()
+    round_trip()                                          # warm-up: tables and plans
+    ntt_cuda.launches = 0
+    switch_key_contract_cuda.launches = 0
+    stage_cuda.launches = 0
+    tensors, values, steps, (rev, rrk, rpairs) = round_trip()
+    large_launches = {"four_step_stage": stage_cuda.launches, "ntt": ntt_cuda.launches,
+                      "switch_key": switch_key_contract_cuda.launches}
+    for name, tensor in tensors.items():
+        check(torch.equal(tensor, ref_tensors[name]), f"round trip: {name} differs from the plain path on the card")
+    for r, (got_v, want_v) in enumerate(zip(values, ref_values)):
+        check(np.array_equal(got_v, want_v), f"round trip: decoded request {r} differs from the plain path")
+        err = float(np.max(np.abs(got_v.real - vals_a * vals_b)))
+        check(np.isfinite(got_v).all() and got_v.shape == (slots,) and err < 1e-3,
+              f"round trip: decoded request {r} is {err} from the exact product")
+    check(large_launches["ntt"] == 0 and large_launches["switch_key"] == 0,
+          f"kernels A and B ran at N=65536: {large_launches}")
+    # per request: the key switch's four transforms and the rescale's two, two launches each
+    per_request = steps["requests"][1] / round_requests
+    check(per_request == 12, f"the stage kernel ran {per_request} times per request, expected 12")
+    drk = relin_keys_from_numpy([golden.key_inputs(rctx, golden.GOLDEN_KEY_SEED)], rctx.key_parms_id, "cuda")
+    d1, d2 = golden.request_inputs(rctx, golden.GOLDEN_REQUEST_SEED)
+    da = ciphertext_from_numpy(d1, rctx.first_parms_id, True, scale, "cuda")
+    db = ciphertext_from_numpy(d2, rctx.first_parms_id, True, scale, "cuda")
+    dig = golden.digest(u64_to_numpy(rev.rescale_to_next(rev.relinearize(rev.multiply(da, db), drk)).data))
+    check(dig == golden.LARGE_DIGEST, f"N=65536 golden digest mismatch: {dig}")
+    print(f"[round trip] N={n_large}, bits {list(golden.LARGE_BITS)}: keys, ciphertexts, plaintexts and decoded "
+          f"values equal to the plain path on the card; {round_requests} decoded products within 1e-3 of the "
+          f"exact ones; the splitmix request matches the JAX package's N={n_large} digest")
+    print(f"[round trip] launches in the counted run: stage kernel {large_launches['four_step_stage']} "
+          f"({per_request:.0f} per request), kernel A {large_launches['ntt']}, kernel B {large_launches['switch_key']}")
+    for name, (sec, n_launch) in steps.items():
+        extra = f", {sec * 1e3 / round_requests:.3f} ms per request" if name == "requests" else ""
+        print(f"[round trip] {name}: {sec * 1e3:.3f} ms{extra}, {n_launch} stage launches; plain path on the card "
+              f"{plain_steps[name][0] * 1e3:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in rpairs:
+            rev.rescale_to_next(rev.relinearize(rev.multiply(x, y), rrk))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, groups = device_split(prof, {"stage": "four_step_stage_kernel"})
+    if not by_name:
+        print("[round trip profile] the profiler recorded no device time: not measured")
+    else:
+        busy_us = sum(by_name.values())
+        print(f"[round trip profile] {round_requests} requests under the profiler: wall {wall_us / 1e3:.3f} ms, "
+              f"{sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)} kernel launches, "
+              f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% of wall); stage kernel "
+              f"{groups['stage'] / 1e3:.3f} ms, other kernels (plain PyTorch elementwise arithmetic, copies) "
+              f"{(busy_us - groups['stage']) / 1e3:.3f} ms, host and idle {(wall_us - busy_us) / 1e3:.3f} ms")
+        for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"[round trip profile]   {v / 1e3:9.3f} ms  {name[:100]}")
+    b_stage, by_stage = bound_ms(stage_totals["bytes"], stage_totals["ops"])
+    print(f"[round trip] the stage kernel per request: {stage_totals['ms'] * 1e3:.1f} us over 12 calls, bound "
+          f"{b_stage * 1e3:.3f} us ({by_stage}), plain {stage_totals['plain_ms'] * 1e3:.1f} us; for "
+          f"information, the dense product's {stage_totals['madds'] / 1e9:.3f} G multiply-adds and "
+          f"{stage_totals['b_bytes'] / 1e6:.2f} MB of matrix reads")
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
@@ -338,9 +587,17 @@ def main():
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
          "max_abs_err": max_err["switch_key"], "ms": sk_main["ms"], "plain_ms": sk_main["plain_ms"],
          "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"], "library_ms": None},
+        {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
+         "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
+         "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
+         "plain_ms": stage_totals["plain_ms"], "bound_ms": b_stage, "bound_by": by_stage, "library_ms": None},
     ]}
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s; kernel A's ms, plain_ms and bound_ms "
-          f"sum the five calls of one request")
+          f"sum the five calls of one N=8192 request, the stage kernel's the twelve of one N=65536 request; its "
+          f"launches count the whole N=65536 round trip, keygen to decode")
+    print("[done] library_ms is null for all three kernels: no PyTorch call computes a negacyclic NTT mod q, the "
+          "key-switch contraction or a modular matrix product (the CUDA int64 matmul is missing and does no "
+          "modular reduction)")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

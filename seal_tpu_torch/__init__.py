@@ -1,11 +1,14 @@
 """seal-tpu-torch: the seal-tpu server path in PyTorch, with CUDA kernels.
 
-A port of ``seal_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.  This
-slice covers what a CKKS server runs per request: ciphertext x ciphertext
-multiply, relinearize and rescale (``pipeline.build_ckks_mult_relin_rescale``),
-with two hand-written Hopper kernels: the negacyclic NTT
-(``csrc/ntt.cu``) and the fused key-switch contraction
-(``csrc/switch_key.cu``).  The package imports neither JAX nor ``seal_tpu``.
+A port of ``seal_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.  It
+covers a CKKS user's whole computation: keygen, encode, encrypt, the
+server's ciphertext x ciphertext multiply, relinearize and rescale
+(``pipeline.build_ckks_mult_relin_rescale``), decrypt and decode, at every
+ring size up to N=131072.  Three hand-written Hopper kernels carry it: the
+negacyclic NTT up to N=16384 (``csrc/ntt.cu``), the fused key-switch
+contraction up to N=16384 (``csrc/switch_key.cu``) and the four-step stage
+that serves every NTT above (``csrc/four_step.cu``).  The package imports
+neither JAX nor ``seal_tpu``.
 
 Contexts live on the card by default; ``SealContext(..., device="cpu")``
 runs the plain PyTorch versions on the CPU.
@@ -14,13 +17,19 @@ runs the plain PyTorch versions on the CPU.
 from .modulus import CoeffModulus, Modulus, SecurityLevel
 from .params import EncryptionParameters, ParmsId, PARMS_ID_ZERO, SchemeType
 from .context import SealContext, EncryptionParameterQualifiers, ErrorType
-from .data import Ciphertext, KSwitchKeys, RelinKeys
+from .data import Ciphertext, KSwitchKeys, Plaintext, PublicKey, RelinKeys, SecretKey
 from .evaluator import Evaluator
+from .keygen import KeyGenerator
+from .encryptor import Encryptor
+from .decryptor import Decryptor
+from .ckks_encoder import CKKSEncoder
+from .random import PRNGType, UniformRandomGeneratorFactory
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Ciphertext", "CoeffModulus", "EncryptionParameterQualifiers", "EncryptionParameters",
-    "ErrorType", "Evaluator", "KSwitchKeys", "Modulus", "PARMS_ID_ZERO", "ParmsId",
-    "RelinKeys", "SchemeType", "SealContext", "SecurityLevel",
+    "CKKSEncoder", "Ciphertext", "CoeffModulus", "Decryptor", "EncryptionParameterQualifiers",
+    "EncryptionParameters", "Encryptor", "ErrorType", "Evaluator", "KSwitchKeys", "KeyGenerator",
+    "Modulus", "PARMS_ID_ZERO", "PRNGType", "ParmsId", "Plaintext", "PublicKey", "RelinKeys",
+    "SchemeType", "SealContext", "SecretKey", "SecurityLevel", "UniformRandomGeneratorFactory",
 ]

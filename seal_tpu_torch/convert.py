@@ -13,9 +13,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .data import Ciphertext, RelinKeys
+from .data import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
 from .ntt_tables import u64_tensor
 from .params import ParmsId
+from .random import PRNGType, UniformRandomGeneratorFactory
 
 
 def u64_from_numpy(array: np.ndarray, device) -> torch.Tensor:
@@ -62,3 +63,49 @@ def relin_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]
 def relin_keys_to_numpy(rk: RelinKeys) -> Tuple[List[Optional[Tuple[np.ndarray, np.ndarray]]], ParmsId]:
     keys = [None if k is None else (u64_to_numpy(k["c0"]), u64_to_numpy(k["c1"])) for k in rk.keys]
     return keys, rk.parms_id
+
+
+def secret_key_from_numpy(data: np.ndarray, parms_id: ParmsId, device) -> SecretKey:
+    """(k_key, n) uint64 NTT-form secret -> SecretKey on ``device``."""
+    if np.ndim(data) != 2:
+        raise ValueError("secret key data must have shape (k_key, n)")
+    return SecretKey(u64_from_numpy(data, device), tuple(parms_id))
+
+
+def secret_key_to_numpy(sk: SecretKey) -> Tuple[np.ndarray, ParmsId]:
+    return u64_to_numpy(sk.data), sk.parms_id
+
+
+def public_key_from_numpy(data: np.ndarray, parms_id: ParmsId, device) -> PublicKey:
+    """(2, k_key, n) uint64 NTT-form encryption of zero -> PublicKey."""
+    return PublicKey(ciphertext_from_numpy(data, parms_id, True, 1.0, device))
+
+
+def public_key_to_numpy(pk: PublicKey) -> Tuple[np.ndarray, ParmsId]:
+    return u64_to_numpy(pk.data.data), pk.parms_id
+
+
+def plaintext_from_numpy(data: np.ndarray, parms_id: ParmsId, scale: float, device) -> Plaintext:
+    """(k, n) uint64 NTT-form RNS plaintext plus its level and scale."""
+    if np.ndim(data) != 2:
+        raise ValueError("plaintext data must have shape (k, n)")
+    p = Plaintext()
+    p.parms_id = tuple(parms_id)
+    p.scale = float(scale)
+    p.rns_data = u64_from_numpy(data, device)
+    return p
+
+
+def plaintext_to_numpy(p: Plaintext) -> Tuple[np.ndarray, ParmsId, float]:
+    return u64_to_numpy(p.rns_data), p.parms_id, p.scale
+
+
+def factory_to_settings(factory: UniformRandomGeneratorFactory) -> Tuple[int, Optional[Tuple[int, ...]]]:
+    """A PRNG factory's (type, default seed); the JAX package's factory has
+    the same two attributes."""
+    return int(factory.prng_type), factory.default_seed
+
+
+def factory_from_settings(prng_type: int, default_seed: Optional[Sequence[int]]) -> UniformRandomGeneratorFactory:
+    return UniformRandomGeneratorFactory(PRNGType(int(prng_type)),
+                                         None if default_seed is None else tuple(int(s) for s in default_seed))

@@ -1,11 +1,12 @@
-"""Ciphertexts and key-switching keys.
+"""Plaintexts, ciphertexts and keys.
 
-Port of the server-side containers of ``seal_tpu/data.py`` (counterparts of
-``ciphertext.h`` / ``kswitchkeys.h`` / ``relinkeys.h``): a ciphertext is one
-int64 tensor of shape (size, k, n), layout [poly][rns_limb][coeff] as in
-``ciphertext.h:728-742``, plus host metadata; key-switching keys are
-stacked over the decomposition axis, each component (D, k_key, n).
-Plaintexts and the secret and public keys arrive with the client slice.
+Port of ``seal_tpu/data.py`` (counterparts of ``plaintext.h`` /
+``ciphertext.h`` / ``secretkey.h`` / ``publickey.h`` / ``kswitchkeys.h``): a
+ciphertext is one int64 tensor of shape (size, k, n), layout
+[poly][rns_limb][coeff] as in ``ciphertext.h:728-742``, plus host metadata;
+key-switching keys are stacked over the decomposition axis, each component
+(D, k_key, n).  Galois keys arrive with rotations (ROADMAP.md queue 1,
+item 8).
 """
 
 from __future__ import annotations
@@ -15,6 +16,22 @@ from typing import List, Optional
 import torch
 
 from .params import ParmsId, PARMS_ID_ZERO
+
+
+class Plaintext:
+    """An RNS polynomial in NTT form tied to a context level: an int64
+    (k, n) tensor on the context's device (cf. ``plaintext.h:796-802``).
+    The mod-t coefficient form of BFV and BGV arrives with those schemes
+    (ROADMAP.md queue 1, items 9 and 10)."""
+
+    def __init__(self):
+        self.parms_id: ParmsId = PARMS_ID_ZERO
+        self.scale: float = 1.0
+        self.rns_data: Optional[torch.Tensor] = None
+
+    @property
+    def is_ntt_form(self) -> bool:
+        return self.parms_id != PARMS_ID_ZERO
 
 
 class Ciphertext:
@@ -33,16 +50,24 @@ class Ciphertext:
         self.is_ntt_form = is_ntt_form
         self.scale = scale
         self.correction_factor = correction_factor
+        # the public seed of c1 for seeded (compressed) ciphertexts
+        self.seed_info = None
 
     @property
     def size(self) -> int:
         return 0 if self.data is None else int(self.data.shape[0])
 
+    @property
+    def coeff_modulus_size(self) -> int:
+        return 0 if self.data is None else int(self.data.shape[1])
+
     def poly(self, j: int) -> torch.Tensor:
         return self.data[j]
 
     def copy(self) -> "Ciphertext":
-        return Ciphertext(self.data, self.parms_id, self.is_ntt_form, self.scale, self.correction_factor)
+        c = Ciphertext(self.data, self.parms_id, self.is_ntt_form, self.scale, self.correction_factor)
+        c.seed_info = self.seed_info
+        return c
 
     def is_transparent(self) -> bool:
         """True if every poly beyond c0 is zero (cf. ``ciphertext.h:451``).
@@ -52,6 +77,25 @@ class Ciphertext:
         if self.size < 2:
             return True
         return not bool(torch.any(self.data[1:] != 0))
+
+
+class SecretKey:
+    """NTT-form ternary secret at the key level, (k_key, n) (``secretkey.h:297``)."""
+
+    def __init__(self, data: Optional[torch.Tensor] = None, parms_id: ParmsId = PARMS_ID_ZERO):
+        self.data = data
+        self.parms_id = parms_id
+
+
+class PublicKey:
+    """Encryption of zero in NTT form at the key level (``publickey.h:268``)."""
+
+    def __init__(self, ciphertext: Optional[Ciphertext] = None):
+        self.data = ciphertext if ciphertext is not None else Ciphertext()
+
+    @property
+    def parms_id(self) -> ParmsId:
+        return self.data.parms_id
 
 
 class KSwitchKeys:

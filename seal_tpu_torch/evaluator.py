@@ -10,8 +10,9 @@ kept in ``self._plans``.
 On the card the two NTT sites and the key-switch contraction launch the
 hand-written kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``);
 the convolution, the key-switch tail and the rescale's subtract-and-scale
-are elementwise mod-q arithmetic in plain PyTorch.  ``plain=True`` runs the
-plain PyTorch versions on the card as well, to check the kernels.
+are elementwise mod-q arithmetic in plain PyTorch.  Inside
+``ops.ntt.plain_on_card()`` the plain PyTorch versions run on the card as
+well, to check the kernels.
 
 BFV and BGV, rotations and the rest of the evaluator surface raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -27,22 +28,12 @@ import torch
 
 from .context import ContextData, SealContext
 from .data import Ciphertext, RelinKeys
-from .params import ParmsId, SchemeType
+from .params import ParmsId, SchemeType, not_ported
 from .ops import ntt as NTT
 from .ops import rns as R
 from .ops import u64 as U
 from .ops.cuda_switch_key import switch_key_contract
 from .ops.rns import _c, _cshoup, _ratio, slice_limbs, take_limbs
-
-_NOT_PORTED = {
-    SchemeType.BFV: "BFV is not ported yet (ROADMAP.md queue 1, item 9)",
-    SchemeType.BGV: "BGV is not ported yet (ROADMAP.md queue 1, item 10)",
-}
-
-
-def _not_ported(scheme: SchemeType):
-    return NotImplementedError(_NOT_PORTED.get(scheme, f"scheme {scheme.name} is not supported"))
-
 
 def _is_scale_within_bounds(scale: float, cd: ContextData) -> bool:
     """Mirrors the reference's is_scale_within_bounds (evaluator.cpp:29-48):
@@ -93,13 +84,10 @@ class _KeySwitchPlan:
 
 
 class Evaluator:
-    def __init__(self, context: SealContext, plain: bool = False):
-        """``plain`` runs the plain PyTorch versions instead of the kernels
-        on the card, to check them."""
+    def __init__(self, context: SealContext):
         if not context.parameters_set:
             raise ValueError("encryption parameters are not set correctly")
         self.context = context
-        self.plain = plain
         self._plans: Dict[ParmsId, _KeySwitchPlan] = {}
 
     # ------------------------------------------------------------------
@@ -130,7 +118,7 @@ class Evaluator:
             raise ValueError("encrypted1 and encrypted2 parameter mismatch")
         scheme = self.context.first_context_data().parms.scheme
         if scheme != SchemeType.CKKS:
-            raise _not_ported(scheme)
+            raise not_ported(scheme)
         out = self._ckks_multiply(ct1, ct2)
         self._check_transparent(out)
         return out
@@ -198,26 +186,25 @@ class Evaluator:
                          target: torch.Tensor, key_c0: torch.Tensor, key_c1: torch.Tensor) -> torch.Tensor:
         scheme = cd.parms.scheme
         if scheme != SchemeType.CKKS:
-            raise _not_ported(scheme)
+            raise not_ported(scheme)
         plan = self._plan(cd)
         D = plan.D
-        t_target = NTT.inverse(target, cd.limb_tables(), plain=self.plain)   # (D, n) < q
+        t_target = NTT.inverse(target, cd.limb_tables())                     # (D, n) < q
 
         # Select key columns (D', k_key, n) -> (D', Rn, n) and stack both
         # components: (2, D', Rn, n); the contraction uses rows [0, D).
         kc = torch.stack([key_c0.index_select(1, plan.key_columns),
                           key_c1.index_select(1, plan.key_columns)])
-        prod = switch_key_contract(t_target, target, kc, plan.sel_tables, plan.need_reduce,
-                                   plain=self.plain)                          # (2, Rn, n) < q_i
+        prod = switch_key_contract(t_target, target, kc, plan.sel_tables, plan.need_reduce)  # (2, Rn, n) < q_i
 
         # Switch the special prime away and add into ct (evaluator.cpp:2806-2865).
         t_last = prod[:, D:].contiguous()                                    # (2, 1, n) NTT mod qk
         rest = prod[:, :D]                                                    # (2, D, n) NTT mod q_i
-        t_last_c = NTT.inverse(t_last, plan.last_tab, lazy=True, plain=self.plain)  # < 2qk
+        t_last_c = NTT.inverse(t_last, plan.last_tab, lazy=True)             # < 2qk
         t_last_c = U.barrett_reduce_64(t_last_c + plan.qk_half, plan.qk, plan.qk_ratio_hi)
         red = U.barrett_reduce_64(t_last_c, plan.dq, plan.dq_ratio_hi)
         t_ntt = torch.where(plan.qk_above, red, t_last_c) + plan.fix          # < 2q_i
-        t_ntt = NTT.forward(t_ntt, plan.dec_tab, lazy=True, plain=self.plain) # < 4q_i
+        t_ntt = NTT.forward(t_ntt, plan.dec_tab, lazy=True)                  # < 4q_i
         new = U.mul_mod_shoup(rest + plan.four_q - t_ntt, plan.ms_op, plan.ms_qt, plan.dq)
 
         out = ct_data[:ct_size].clone()
@@ -254,7 +241,7 @@ class Evaluator:
         cd = self._cd(ct)
         scheme = cd.parms.scheme
         if scheme != SchemeType.CKKS:
-            raise _not_ported(scheme)
+            raise not_ported(scheme)
         if not ct.is_ntt_form:
             raise ValueError("CKKS encrypted must be in NTT form")
         next_cd = cd.next_context_data
@@ -266,7 +253,7 @@ class Evaluator:
             ct.scale / cd.coeff_modulus_values[-1], next_cd
         ):
             raise ValueError("scale out of bounds")
-        data = R.divide_and_round_q_last_ntt(ct.data, cd.rns_tool, cd.limb_tables(), plain=self.plain)
+        data = R.divide_and_round_q_last_ntt(ct.data, cd.rns_tool, cd.limb_tables())
         return Ciphertext(
             data=data,
             parms_id=next_cd.parms_id,

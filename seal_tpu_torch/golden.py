@@ -13,9 +13,11 @@ others.
 inputs ``key_inputs(ctx, GOLDEN_KEY_SEED)`` and
 ``request_inputs(ctx, GOLDEN_REQUEST_SEED)``, for CKKS N=8192 with
 coefficient-modulus bits [60, 40, 40, 40, 60], ``SecurityLevel.NONE`` and
-the chain expanded (the context of ``__graft_entry__._build``).  It was
+the chain expanded (the context of ``__graft_entry__._build``).
+``LARGE_DIGEST`` is the same for N=65536 with bits [60, 40, 40, 60], where
+every NTT of the card runs on the four-step stage kernel.  Both were
 computed once with the JAX package on the CPU; ``tests/test_torch_slice.py``
-recomputes it from both the JAX package and the port's plain path, and
+recomputes them from both the JAX package and the port's plain path, and
 ``chip_smoke.py`` from the kernels on the card.
 """
 
@@ -33,6 +35,9 @@ GOLDEN_BITS = (60, 40, 40, 40, 60)
 GOLDEN_KEY_SEED = 0
 GOLDEN_REQUEST_SEED = 1
 GOLDEN_DIGEST = "07ad955fcfa99447cf40fde7c64159c6b2b7a2e658684cdd61dc917dd569b6eb"
+LARGE_N = 65536
+LARGE_BITS = (60, 40, 40, 60)
+LARGE_DIGEST = "a125529dbd63f6a1af2c9c146075c5b0291303113d8ae5ce08151d1c208aa702"
 
 _GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _M1 = np.uint64(0xBF58476D1CE4E5B9)

@@ -1,0 +1,93 @@
+"""Key generation: the secret key, the public key and relinearization keys.
+
+Port of ``seal_tpu/keygen.py`` (counterpart of ``keygenerator.{h,cpp}``) on
+its host-sampled path.  A key-switching key follows the reference
+(``keygenerator.cpp:327-360``): for decomposition limb i, an NTT-form
+encryption of zero at the key level with ``(q_last mod q_i) * target[i]``
+added into c0's limb i, stacked over the decomposition axis.  Galois keys
+arrive with rotations (ROADMAP.md queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from .context import SealContext
+from .data import PublicKey, RelinKeys, SecretKey
+from .ntt_tables import u64_tensor
+from .ops import ntt as NTT
+from .ops import u64 as U
+from .ops.rns import _c, _cshoup
+from .random.sampler import sample_poly_ternary
+from .rlwe import encrypt_zero_symmetric
+
+_GALOIS = "Galois keys and rotations are not ported yet (ROADMAP.md queue 1, item 8)"
+
+
+class KeyGenerator:
+    def __init__(self, context: SealContext, secret_key: Optional[SecretKey] = None):
+        if not context.parameters_set:
+            raise ValueError("encryption parameters are not set correctly")
+        self.context = context
+        cd = context.key_context_data()
+        if secret_key is None:
+            parms = cd.parms
+            sk = sample_poly_ternary(parms.random_generator.create(), parms.poly_modulus_degree,
+                                     cd.coeff_modulus_values)
+            sk_ntt = NTT.forward(u64_tensor(sk, context.device), cd.limb_tables())
+            secret_key = SecretKey(sk_ntt, cd.parms_id)
+        self._secret_key = secret_key
+        self._sk_powers: List[torch.Tensor] = [secret_key.data]   # s, s^2, ... NTT form
+
+    @property
+    def secret_key(self) -> SecretKey:
+        return self._secret_key
+
+    def _secret_key_power(self, power: int) -> torch.Tensor:
+        """s^power in NTT form at the key level (keygenerator.cpp:237-325)."""
+        t = self.context.key_context_data().limb_tables()
+        while len(self._sk_powers) < power:
+            self._sk_powers.append(U.mul_mod(self._sk_powers[-1], self._sk_powers[0], t.q, t.ratio_lo, t.ratio_hi))
+        return self._sk_powers[power - 1]
+
+    def create_public_key(self, save_seed: bool = False) -> PublicKey:
+        key_id = self.context.key_parms_id
+        return PublicKey(encrypt_zero_symmetric(self._secret_key, self.context, key_id, save_seed))
+
+    def _generate_one_kswitch_key(self, target: torch.Tensor, save_seed: bool = False) -> dict:
+        """D encryptions of zero with (q_last mod q_i) * target[i] added into
+        c0's limb i, stacked: {'c0', 'c1': (D, k_key, n), 'seeds'}."""
+        if not self.context.using_keyswitching:
+            raise ValueError("keyswitching is not supported by the context")
+        key_cd = self.context.key_context_data()
+        key_moduli = key_cd.coeff_modulus_values
+        D = len(self.context.first_context_data().parms.coeff_modulus)
+        cts = [encrypt_zero_symmetric(self._secret_key, self.context, key_cd.parms_id, save_seed)
+               for _ in range(D)]
+        c0 = torch.stack([ct.data[0] for ct in cts])
+        c1 = torch.stack([ct.data[1] for ct in cts])
+        dev = self.context.device
+        q = _c(key_moduli, dev)
+        op, qt = _cshoup([key_moduli[-1] % qi for qi in key_moduli], key_moduli, dev)
+        add_term = U.mul_mod_shoup(target, op, qt, q)                     # (k_key, n)
+        diag = torch.arange(D, device=dev)
+        c0[diag, diag] = U.add_mod(c0[diag, diag], add_term[:D], q[:D])
+        return {"c0": c0, "c1": c1, "seeds": [ct.seed_info for ct in cts] if save_seed else None}
+
+    def create_relin_keys(self, count: int = 1, save_seed: bool = False) -> RelinKeys:
+        """Keys for s^2 .. s^(count+1) (cf. create_relin_keys_internal)."""
+        if not (1 <= count <= 14):  # CIPHERTEXT_SIZE_MAX - 2
+            raise ValueError("invalid count")
+        keys = RelinKeys()
+        keys.keys = [self._generate_one_kswitch_key(self._secret_key_power(power), save_seed)
+                     for power in range(2, count + 2)]
+        keys.parms_id = self.context.key_parms_id
+        return keys
+
+    def create_galois_keys(self, *args, **kwargs):
+        raise NotImplementedError(_GALOIS)
+
+    def create_galois_keys_from_steps(self, *args, **kwargs):
+        raise NotImplementedError(_GALOIS)

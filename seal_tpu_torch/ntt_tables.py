@@ -14,9 +14,13 @@ Each twiddle carries a Shoup quotient ``floor(w << 64 / q)``.  ``LimbTables``
 packs the tables of a whole RNS modulus vector into int64 tensors, one per
 u64 array (the JAX package splits each into uint32 lo/hi words).  A Shoup
 quotient or Barrett word can reach 2^64 - 1: it is stored as the int64 with
-the same bits, which is what CUDA code reads as ``uint64_t``.  The four-step
-matrices (``MXUTables``) of the JAX package have no counterpart: the card's
-NTT kernel runs the butterflies on native 64-bit integers.
+the same bits, which is what CUDA code reads as ``uint64_t``.
+
+``FourStepTables`` is the counterpart of the JAX package's ``MXUTables``:
+the same factorization of the length-n transform into an n1-point matrix
+stage, a twiddle and an n2-point matrix stage, with the same matrices, but
+stored as u64 values (the card multiplies 64-bit integers natively) rather
+than as int8 digit planes.
 """
 
 from __future__ import annotations
@@ -105,6 +109,8 @@ class LimbTables(NamedTuple):
     moduli_values: tuple = ()
     # per-limb scalar folded into the inverse transform's 1/n constants
     inv_scale: tuple = ()
+    # the four-step constants of these limbs, built at first use
+    four_step: "FourStepSlot | None" = None
 
     N_ARRAY_FIELDS = 12  # fields before the metadata tail
 
@@ -158,4 +164,178 @@ def build_limb_tables(
         log_n=log_n,
         moduli_values=tuple(m.value for m in moduli),
         inv_scale=tuple(int(s) for s in inv_scale),
+        four_step=FourStepSlot(),
     )
+
+
+# ---------------------------------------------------------------------------
+# Four-step tables (port of seal_tpu/ntt_tables.py:317-487)
+# ---------------------------------------------------------------------------
+
+class FourStepTables(NamedTuple):
+    """Constants of the four-step negacyclic NTT for a vector of k moduli.
+
+    With the coefficients laid out as an (n1, n2) matrix ``d[r, c] =
+    x[r * n2 + c]``, the forward transform is
+
+        h[t1, c]   = (sum_r W[t1, r] d[r, c]) * T[t1, c]      (stage A)
+        out[t1, t2] = sum_c F[t2, c] h[t1, c]                  (stage B)
+
+    and equals the Harvey butterflies' bit-reversed output.  The inverse
+    runs Finv (1/n2 folded in) with the twiddle Ti, then Winv (1/n1 and
+    ``inv_scale`` folded in).  Matrices are (k, M, K) int64 holding u64
+    values below q; twiddles are (k, n) in the (t1, c) layout, with Shoup
+    quotients; per-limb constants are (k, 1).
+    """
+
+    w: torch.Tensor          # (k, n1, n1): W[t1, r]
+    f: torch.Tensor          # (k, n2, n2): F[t2, c]
+    winv: torch.Tensor       # (k, n1, n1): Winv[r, t1]
+    finv: torch.Tensor       # (k, n2, n2): Finv[c, t2]
+    tw_op: torch.Tensor      # (k, n): T[t1, c] = alpha_t1^c
+    tw_qt: torch.Tensor
+    twi_op: torch.Tensor     # (k, n): alpha_t1^-c
+    twi_qt: torch.Tensor
+    q: torch.Tensor          # (k, 1)
+    ratio_lo: torch.Tensor
+    ratio_hi: torch.Tensor
+    n1: int = 0
+    n2: int = 0
+    log_n: int = 0
+    moduli_values: tuple = ()
+    inv_scale: tuple = ()
+
+
+_FOUR_STEP_ARRAY_FIELDS = 11  # fields before the metadata tail
+
+
+def default_split(log_n: int) -> int:
+    """The JAX package's factorization rule (``ntt_tables.py:389-399``): n2
+    is the larger factor up to 128, then doubled while n1 exceeds 512."""
+    n = 1 << log_n
+    n2 = min(128, 1 << ((log_n + 1) // 2))
+    while n // n2 > 512:
+        n2 *= 2
+    return n2
+
+
+_FOUR_STEP_HOST_CACHE = {}
+
+
+def _four_step_host(log_n: int, q: int, n2: int, inv_scale: int):
+    """Per-modulus matrices and twiddles as Python-int lists (cached)."""
+    key = (log_n, q, n2, inv_scale % q)
+    hit = _FOUR_STEP_HOST_CACHE.get(key)
+    if hit is not None:
+        return hit
+    n = 1 << log_n
+    n1 = n // n2
+    ln1, ln2 = n1.bit_length() - 1, n2.bit_length() - 1
+    psi = cached_host_ntt_tables(log_n, Modulus(q)).root
+    eta = pow(psi, n2, q)          # primitive 2*n1-th root
+    zeta = pow(psi, 2 * n1, q)     # primitive n2-th root of unity
+    inv_n1 = numth.invert_mod(n1, q) * (inv_scale % q) % q
+    inv_n2 = numth.invert_mod(n2, q)
+
+    def powers(base: int, start: int, count: int) -> List[int]:
+        out = [0] * count
+        acc = start
+        for i in range(count):
+            out[i] = acc
+            acc = acc * base % q
+        return out
+
+    W, Winv_t, T, Ti = [], [], [], []
+    for t1 in range(n1):
+        e = 2 * numth.reverse_bits(t1, ln1) + 1
+        w = pow(eta, e, q)
+        alpha = pow(psi, e, q)
+        W.append(powers(w, 1, n1))
+        Winv_t.append(powers(numth.invert_mod(w, q), inv_n1, n1))   # row t1 of Winv^T
+        T.extend(powers(alpha, 1, n2))
+        Ti.extend(powers(numth.invert_mod(alpha, q), 1, n2))
+    F, Finv_t = [], []
+    for t2 in range(n2):
+        z = pow(zeta, numth.reverse_bits(t2, ln2), q)
+        F.append(powers(z, 1, n2))
+        Finv_t.append(powers(numth.invert_mod(z, q), inv_n2, n2))  # row t2 of Finv^T
+    Winv = [list(col) for col in zip(*Winv_t)]
+    Finv = [list(col) for col in zip(*Finv_t)]
+    hit = (W, F, Winv, Finv, T, [_shoup(a, q) for a in T], Ti, [_shoup(a, q) for a in Ti])
+    _FOUR_STEP_HOST_CACHE[key] = hit
+    return hit
+
+
+def build_four_step_tables(
+    log_n: int,
+    moduli: Sequence[Modulus],
+    n2: "int | None" = None,
+    inv_scale: "Sequence[int] | None" = None,
+    device=None,
+) -> FourStepTables:
+    """Four-step constants for a modulus vector, on ``device``.
+
+    ``n2`` defaults to the JAX package's rule (:func:`default_split`);
+    ``inv_scale`` folds a per-limb scalar into the inverse's last matrix, as
+    ``build_limb_tables`` folds it into the last butterfly stage.
+    """
+    n = 1 << log_n
+    if n2 is None:
+        n2 = default_split(log_n)
+    n1 = n // n2
+    if n1 < 2 or n2 < 2 or n1 * n2 != n:
+        raise ValueError(f"four-step NTT needs n = n1 * n2 with n1, n2 >= 2, got n={n}, n2={n2}")
+    k = len(moduli)
+    if inv_scale is None:
+        inv_scale = [1] * k
+    per_limb = [_four_step_host(log_n, m.value, n2, int(s)) for m, s in zip(moduli, inv_scale)]
+    fields = [u64_tensor([limb[i] for limb in per_limb], device) for i in range(8)]
+    ratio = [m.const_ratio for m in moduli]
+    return FourStepTables(
+        *fields,
+        q=u64_tensor([[m.value] for m in moduli], device),
+        ratio_lo=u64_tensor([[r & _MASK64] for r in ratio], device),
+        ratio_hi=u64_tensor([[r >> 64] for r in ratio], device),
+        n1=n1, n2=n2, log_n=log_n,
+        moduli_values=tuple(m.value for m in moduli),
+        inv_scale=tuple(int(s) for s in inv_scale),
+    )
+
+
+class FourStepSlot:
+    """The four-step constants of one :class:`LimbTables` bundle, built at
+    first use and kept by the bundle, so they live and die with it.  A
+    bundle cut from another (``ops/rns.slice_limbs``, ``take_limbs``) gets a
+    slot that names its parent bundle and limb rows: it selects its
+    constants from the parent's, which are built once."""
+
+    __slots__ = ("tables", "parent", "rows")
+
+    def __init__(self, parent: "LimbTables | None" = None, rows=None):
+        self.tables: "FourStepTables | None" = None
+        self.parent = parent
+        self.rows = rows          # a slice or a list of the parent's limbs
+
+
+def four_step_tables_for(t: LimbTables) -> FourStepTables:
+    """The four-step constants of a butterfly table bundle, built once per
+    bundle, as the JAX package's ``ops/ntt.py:_mxu_tables_for`` builds them
+    once per modulus vector."""
+    slot = t.four_step
+    if slot.tables is not None:
+        return slot.tables
+    if slot.parent is not None:
+        whole = four_step_tables_for(slot.parent)
+        rows = slot.rows          # a slice gives views, a list copies
+        ids = range(len(whole.moduli_values))[rows] if isinstance(rows, slice) else rows
+        ft = FourStepTables(
+            *(a[rows] for a in whole[:_FOUR_STEP_ARRAY_FIELDS]),
+            n1=whole.n1, n2=whole.n2, log_n=whole.log_n,
+            moduli_values=tuple(whole.moduli_values[i] for i in ids),
+            inv_scale=tuple(whole.inv_scale[i] for i in ids),
+        )
+    else:
+        ft = build_four_step_tables(t.log_n, [Modulus(v) for v in t.moduli_values],
+                                    inv_scale=t.inv_scale or None, device=t.device)
+    slot.tables = ft
+    return ft

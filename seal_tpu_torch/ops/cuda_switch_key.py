@@ -5,7 +5,11 @@
 ``switch_key_contract_plain`` is the staged formulation of
 ``seal_tpu/evaluator.py:594-630``: reduce, batched forward NTT, u128
 contraction over the decomposition axis with a Barrett guard every 64
-summands, final Barrett.  Both take the contract of
+summands, final Barrett.  Above n = 16384 a row no longer fits a block's
+shared memory and the card runs that staged formulation itself, as the JAX
+package does there (``pallas_switch_key.py:52-56``): the decompose and the
+contraction in plain PyTorch, the batched NTT on the four-step stage kernel.
+All take the contract of
 ``seal_tpu.ops.pallas_switch_key.switch_key_contract``:
 
 * ``t_c``: (D, n) coefficient-form source limbs, limb j < q_j;
@@ -30,7 +34,7 @@ from ..ntt_tables import LimbTables
 from . import cuda_build
 from . import u64 as U
 from .cuda_ntt import MAX_LOG_N
-from .ntt import ntt_forward
+from .ntt import forward, ntt_forward, use_kernels
 
 _ACC_WINDOW = 64  # lazy u128 summands between Barrett guards (defines.h:66)
 _MIN_LOG_N = 3    # the kernel gives each thread 8 coefficients
@@ -40,14 +44,18 @@ _I = ctypes.c_int
 
 
 def switch_key_contract_plain(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
-                              need_reduce: torch.Tensor) -> torch.Tensor:
-    """The staged formulation, in plain PyTorch on the tensors' device."""
+                              need_reduce: torch.Tensor, ntt=None) -> torch.Tensor:
+    """The staged formulation, in plain PyTorch on the tensors' device.
+
+    ``ntt(x, t)`` replaces the butterflies for the batched forward NTT of
+    the (D, Rn, n) decomposition; any exact transform gives the same output.
+    """
     D, n = t_c.shape
     key = key[:, :D]
     tt = t_c[:, None, :]                                         # (D, 1, n)
     reduced = U.barrett_reduce_64(tt, t.q, t.ratio_hi)           # (D, Rn, n)
     t_op = torch.where(need_reduce[:, :, None], reduced, tt)
-    t_op = ntt_forward(t_op, t, lazy=True)                       # < 4q
+    t_op = ntt_forward(t_op, t, lazy=True) if ntt is None else ntt(t_op, t)   # < 4q
     if t_n is not None:
         diag = torch.arange(D, device=t_c.device)
         t_op[diag, diag] = t_n
@@ -123,9 +131,12 @@ switch_key_contract_cuda.launches = 0
 
 
 def switch_key_contract(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
-                        need_reduce: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """Kernel B for tensors on the card, the plain version on the CPU
-    (or on the card with ``plain=True``)."""
-    if t_c.is_cuda and not plain:
-        return switch_key_contract_cuda(t_c, t_n, key, t, need_reduce)
+                        need_reduce: torch.Tensor) -> torch.Tensor:
+    """Kernel B for tensors on the card up to n = 16384, the staged
+    formulation on the stage kernel above that, the plain version on the CPU
+    (or on the card inside ``ops.ntt.plain_on_card()``)."""
+    if use_kernels(t_c):
+        if t.log_n <= MAX_LOG_N:
+            return switch_key_contract_cuda(t_c, t_n, key, t, need_reduce)
+        return switch_key_contract_plain(t_c, t_n, key, t, need_reduce, ntt=forward)
     return switch_key_contract_plain(t_c, t_n, key, t, need_reduce)

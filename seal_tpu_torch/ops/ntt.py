@@ -8,22 +8,60 @@ reference's bit-reversed NTT order (``util/dwthandler.h:94-356``); lazy
 reduction keeps values in [0, 4q) through the forward stages and [0, 2q)
 through the inverse (``util/ntt.h:195-340``).
 
-``forward`` and ``inverse`` are what the evaluator calls: a tensor on the
-card goes to the hand-written kernel (``ops/cuda_ntt.py``), whose output is
-always reduced to [0, q) — as the JAX package's Pallas kernel's is, even
-when ``lazy`` is asked for; a tensor on the CPU goes to the butterflies.
-``plain=True`` runs the butterflies on the card too, to check the kernel.
+``forward`` and ``inverse`` are what the rest of the port calls (the
+dispatch of ``seal_tpu/ops/ntt.py:90-115,155-229``):
+
+* a tensor on the card at n <= 16384, where a row fits a block's shared
+  memory, goes to kernel A (``ops/cuda_ntt.py``);
+* a tensor on the card above that goes to the four-step transform
+  (``ops/four_step.py``) on the stage kernel (``ops/cuda_four_step.py``),
+  two launches per transform;
+* a tensor on the CPU goes to the butterflies at every n.
+
+Nothing falls back: a tensor on the card launches a kernel or raises.  Both
+kernels' outputs are reduced to [0, q), as the JAX package's Pallas
+kernels' are, even when ``lazy`` is asked for.
+
+:func:`plain_on_card` is the one switch between the card's kernels and
+their plain versions: inside it, every entry point of the port (keygen,
+encryption, the encoder, the evaluator) runs the plain PyTorch versions on
+the card too, to check the kernels.  :func:`use_kernels` is what each
+dispatch reads.
 
 Shapes: data is int64 (..., k, n); all k RNS limbs transform together.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from ..ntt_tables import LimbTables
+from ..ntt_tables import LimbTables, four_step_tables_for
 from . import u64 as U
-from .cuda_ntt import ntt_cuda
+from .cuda_four_step import stage_cuda
+from .cuda_ntt import MAX_LOG_N, ntt_cuda
+from .four_step import four_step_forward, four_step_inverse
+
+
+_plain_on_card = False
+
+
+def use_kernels(x: torch.Tensor) -> bool:
+    """True where ``x`` lies on the card and no :func:`plain_on_card` block
+    is open: the dispatch then launches the card's kernels."""
+    return x.is_cuda and not _plain_on_card
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Run the plain PyTorch versions on the card inside the block."""
+    global _plain_on_card
+    before, _plain_on_card = _plain_on_card, True
+    try:
+        yield
+    finally:
+        _plain_on_card = before
 
 
 def _guard(x: torch.Tensor, two_q: torch.Tensor) -> torch.Tensor:
@@ -94,15 +132,21 @@ def ntt_inverse(x: torch.Tensor, t: LimbTables, lazy: bool = False) -> torch.Ten
     return torch.where(x >= t.q, x - t.q, x)
 
 
-def forward(x: torch.Tensor, t: LimbTables, lazy: bool = False, plain: bool = False) -> torch.Tensor:
+def forward(x: torch.Tensor, t: LimbTables, lazy: bool = False) -> torch.Tensor:
     """Forward NTT on the tensor's device: the card's kernel or the butterflies."""
-    if x.is_cuda and not plain:
-        return ntt_cuda(x, t, inverse=False)
+    if use_kernels(x):
+        if t.log_n <= MAX_LOG_N:
+            return ntt_cuda(x, t, inverse=False)
+        _check_shape(x, t)
+        return four_step_forward(x.contiguous(), four_step_tables_for(t), stage=stage_cuda)
     return ntt_forward(x, t, lazy)
 
 
-def inverse(x: torch.Tensor, t: LimbTables, lazy: bool = False, plain: bool = False) -> torch.Tensor:
+def inverse(x: torch.Tensor, t: LimbTables, lazy: bool = False) -> torch.Tensor:
     """Inverse NTT on the tensor's device: the card's kernel or the butterflies."""
-    if x.is_cuda and not plain:
-        return ntt_cuda(x, t, inverse=True)
+    if use_kernels(x):
+        if t.log_n <= MAX_LOG_N:
+            return ntt_cuda(x, t, inverse=True)
+        _check_shape(x, t)
+        return four_step_inverse(x.contiguous(), four_step_tables_for(t), stage=stage_cuda)
     return ntt_inverse(x, t, lazy)

@@ -13,7 +13,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..ntt_tables import LimbTables, u64_tensor
+from ..ntt_tables import FourStepSlot, LimbTables, u64_tensor
 from ..rns_host import HostRNSTool, shoup_pair
 from . import ntt as NTT
 from . import u64 as U
@@ -60,13 +60,11 @@ def _rescale_constants(tool: HostRNSTool, device) -> _RescaleConstants:
     return tool.device_cache[key]
 
 
-def divide_and_round_q_last_ntt(x: torch.Tensor, tool: HostRNSTool, tables: LimbTables,
-                                plain: bool = False) -> torch.Tensor:
+def divide_and_round_q_last_ntt(x: torch.Tensor, tool: HostRNSTool, tables: LimbTables) -> torch.Tensor:
     """NTT-domain divide-and-round by the last prime (rns.cpp:830-902).
 
     ``x``: (..., k, n) in NTT form over base q; ``tables`` covers base q.
-    Returns (..., k-1, n) in [0, q_i).  ``plain`` selects the butterflies on
-    the card (see ``ops/ntt.py``).
+    Returns (..., k-1, n) in [0, q_i).
     """
     k = tool.base_q.size
     c = _rescale_constants(tool, x.device)
@@ -75,12 +73,12 @@ def divide_and_round_q_last_ntt(x: torch.Tensor, tool: HostRNSTool, tables: Limb
     last_tab = slice_limbs(tables, k - 1, k)
     rest_tab = slice_limbs(tables, 0, k - 1)
 
-    last_coeff = NTT.inverse(x_last.contiguous(), last_tab, plain=plain)
+    last_coeff = NTT.inverse(x_last.contiguous(), last_tab)
     last_plus = U.add_mod(last_coeff, c.half, c.q_last)
     reduced = U.barrett_reduce_64(last_plus, c.rest_q, c.rest_ratio_hi)
     temp = torch.where(c.need_reduce, reduced, last_plus)
     # lazy subtract of half: temp += q_i - (half mod q_i); stays < 2q_i
-    temp = NTT.forward(temp + c.neg_half, rest_tab, lazy=True, plain=plain)   # < 4q_i
+    temp = NTT.forward(temp + c.neg_half, rest_tab, lazy=True)   # < 4q_i
     # x_i + 4q_i - temp, then Shoup-reduce via multiply
     return U.mul_mod_shoup(x_rest + c.four_q - temp, c.inv_op, c.inv_qt, c.rest_q)
 
@@ -92,6 +90,7 @@ def slice_limbs(t: LimbTables, start: int, stop: int) -> LimbTables:
         *(arr[start:stop] for arr in t[:na]),
         log_n=t.log_n, moduli_values=t.moduli_values[start:stop],
         inv_scale=t.inv_scale[start:stop] if t.inv_scale else (),
+        four_step=FourStepSlot(t, slice(start, stop)),
     )
 
 
@@ -105,4 +104,5 @@ def take_limbs(t: LimbTables, indices) -> LimbTables:
         log_n=t.log_n,
         moduli_values=tuple(t.moduli_values[i] for i in idx) if t.moduli_values else (),
         inv_scale=tuple(t.inv_scale[i] for i in idx) if t.inv_scale else (),
+        four_step=FourStepSlot(t, idx),
     )

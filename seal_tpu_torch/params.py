@@ -6,8 +6,8 @@ Port of ``seal_tpu/params.py`` (counterpart of
 blake2b hash over the little-endian u64 words [scheme, N, q_1..q_k, t]
 (``encryptionparams.cpp:124-158``), recomputed on every mutation.
 ``hashlib.blake2b(digest_size=32)`` gives the same bytes as the JAX
-package's native blake2b.  The random-generator factory arrives with the
-keygen slice.
+package's native blake2b.  The random-generator factory and the noise
+sampler ride along without entering the parms-id.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ from __future__ import annotations
 import enum
 import hashlib
 import struct
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from .modulus import Modulus
+from .random import UniformRandomGeneratorFactory
 
 ParmsId = Tuple[int, int, int, int]
 PARMS_ID_ZERO: ParmsId = (0, 0, 0, 0)
@@ -32,12 +33,25 @@ class SchemeType(enum.IntEnum):
     BGV = 0x3
 
 
+_NOT_PORTED = {
+    SchemeType.BFV: "BFV is not ported yet (ROADMAP.md queue 1, item 9)",
+    SchemeType.BGV: "BGV is not ported yet (ROADMAP.md queue 1, item 10)",
+}
+
+
+def not_ported(scheme: SchemeType) -> NotImplementedError:
+    """The error for a scheme the port does not run yet, naming its ROADMAP item."""
+    return NotImplementedError(_NOT_PORTED.get(scheme, f"scheme {scheme.name} is not supported"))
+
+
 class EncryptionParameters:
     def __init__(self, scheme: SchemeType = SchemeType.NONE):
         self._scheme = SchemeType(scheme)
         self._poly_modulus_degree = 0
         self._coeff_modulus: List[Modulus] = []
         self._plain_modulus = Modulus(0)
+        self._random_factory: Optional[UniformRandomGeneratorFactory] = None
+        self._noise_sampler = "cbd"
         self._parms_id = PARMS_ID_ZERO
         self._compute_parms_id()
 
@@ -59,6 +73,19 @@ class EncryptionParameters:
         self._plain_modulus = modulus if isinstance(modulus, Modulus) else Modulus(modulus)
         self._compute_parms_id()
 
+    def set_random_generator(self, factory: UniformRandomGeneratorFactory):
+        """Select the PRNG factory (the reference's SEAL_DEFAULT_PRNG option,
+        at run time); a factory with a default seed makes keygen and
+        encryption deterministic."""
+        self._random_factory = factory
+
+    def set_noise_sampler(self, kind: str):
+        """'cbd' (centered binomial, the default) or 'gaussian' (clipped
+        normal, sigma 3.2)."""
+        if kind not in ("cbd", "gaussian"):
+            raise ValueError("noise sampler must be 'cbd' or 'gaussian'")
+        self._noise_sampler = kind
+
     @property
     def scheme(self) -> SchemeType:
         return self._scheme
@@ -76,6 +103,14 @@ class EncryptionParameters:
         return self._plain_modulus
 
     @property
+    def random_generator(self) -> UniformRandomGeneratorFactory:
+        return self._random_factory or UniformRandomGeneratorFactory.default_factory()
+
+    @property
+    def noise_sampler(self) -> str:
+        return self._noise_sampler
+
+    @property
     def parms_id(self) -> ParmsId:
         return self._parms_id
 
@@ -84,6 +119,8 @@ class EncryptionParameters:
         p._poly_modulus_degree = self._poly_modulus_degree
         p._coeff_modulus = list(self._coeff_modulus)
         p._plain_modulus = self._plain_modulus
+        p._random_factory = self._random_factory
+        p._noise_sampler = self._noise_sampler
         p._compute_parms_id()
         return p
 

@@ -11,21 +11,20 @@ from .evaluator import Evaluator
 from .ops import rns as R
 
 
-def build_ckks_mult_relin_rescale(context: SealContext, plain: bool = False):
+def build_ckks_mult_relin_rescale(context: SealContext):
     """Returns fn(d1, d2, kc0, kc1) -> the rescaled product data.
 
     d1, d2: int64 (2, k, n) — NTT-form size-2 ciphertexts at the first
     level.  kc0/kc1: stacked relinearization key components (D, k_key, n).
-    Returns (2, k - 1, n).  ``plain`` runs the plain PyTorch versions instead
-    of the kernels on the card.
+    Returns (2, k - 1, n).
     """
-    ev = Evaluator(context, plain=plain)
+    ev = Evaluator(context)
     cd = context.first_context_data()
 
     def fn(d1, d2, kc0, kc1):
         t = cd.limb_tables()
         data3 = ev._convolve(d1, d2, t)
         data2 = ev._switch_key_body(cd, 2, data3[:2], data3[2], kc0, kc1)
-        return R.divide_and_round_q_last_ntt(data2, cd.rns_tool, t, plain=plain)
+        return R.divide_and_round_q_last_ntt(data2, cd.rns_tool, t)
 
     return fn

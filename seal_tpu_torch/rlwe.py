@@ -1,0 +1,85 @@
+"""RLWE encryptions of zero: the core of keygen and encryption.
+
+Port of the host-sampled path of ``seal_tpu/rlwe.py`` (counterpart of
+``util/rlwe.cpp:190-407``), in NTT form: keys and CKKS ciphertexts.
+Sampling runs on the host (numpy over the deterministic PRNG byte stream,
+in the reference's draw order); the ring arithmetic runs on the context's
+device, every NTT through ``ops/ntt.py``.  The JAX package's device-sampled
+path (``ops/blake2_dev.py``) gives the same bytes and waits for a later
+slice (ROADMAP.md queue 1, item 6); BFV's coefficient-form encryptions and
+BGV's noise times t arrive with those schemes.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+from .context import SealContext
+from .data import Ciphertext, PublicKey, SecretKey
+from .ntt_tables import u64_tensor
+from .params import ParmsId, SchemeType, not_ported
+from .ops import ntt as NTT
+from .ops import u64 as U
+from .random import UniformRandomGeneratorFactory
+from .random.prng import PRNG_SEED_BYTE_COUNT
+from .random.sampler import noise_sampler_for, sample_poly_ternary, sample_poly_uniform
+
+
+def _check_scheme(parms):
+    if parms.scheme == SchemeType.BGV:
+        raise not_ported(parms.scheme)
+
+
+def encrypt_zero_symmetric(secret_key: SecretKey, context: SealContext, parms_id: ParmsId,
+                           save_seed: bool = False) -> Ciphertext:
+    """(c0, c1) = ([-(a s + e)]_q, a) in NTT form (rlwe.cpp:277-407).
+
+    ``a`` is expanded from a public seed drawn from the parameters' PRNG;
+    with ``save_seed`` the seed is kept in ``seed_info`` so c1 can be
+    regenerated.
+    """
+    cd = context.get_context_data(parms_id)
+    parms = cd.parms
+    _check_scheme(parms)
+    moduli = cd.coeff_modulus_values
+    n = parms.poly_modulus_degree
+    t = cd.limb_tables()
+    dev = context.device
+
+    bootstrap_prng = parms.random_generator.create()
+    public_seed = struct.unpack("<8Q", bootstrap_prng.generate(PRNG_SEED_BYTE_COUNT))
+    ciphertext_prng = UniformRandomGeneratorFactory.default_factory().create(public_seed)
+    c1 = u64_tensor(sample_poly_uniform(ciphertext_prng, n, moduli), dev)
+    noise = u64_tensor(noise_sampler_for(parms)(bootstrap_prng, n, moduli), dev)
+
+    # the uniform sample is taken as the NTT form of c1
+    c0 = U.mul_mod(secret_key.data[: len(moduli)], c1, t.q, t.ratio_lo, t.ratio_hi)
+    c0 = U.neg_mod(U.add_mod(NTT.forward(noise, t), c0, t.q), t.q)
+    ct = Ciphertext(torch.stack([c0, c1]), parms_id, True, 1.0, 1)
+    if save_seed:
+        ct.seed_info = ciphertext_prng.info()
+    return ct
+
+
+def encrypt_zero_asymmetric(public_key: PublicKey, context: SealContext, parms_id: ParmsId) -> Ciphertext:
+    """c_j = pk_j u + e_j in NTT form (rlwe.cpp:190-275)."""
+    cd = context.get_context_data(parms_id)
+    parms = cd.parms
+    _check_scheme(parms)
+    moduli = cd.coeff_modulus_values
+    n = parms.poly_modulus_degree
+    t = cd.limb_tables()
+    k = len(moduli)
+    size = public_key.data.size
+    dev = context.device
+
+    prng = parms.random_generator.create()
+    u = u64_tensor(sample_poly_ternary(prng, n, moduli), dev)
+    sampler = noise_sampler_for(parms)
+    noise = torch.stack([u64_tensor(sampler(prng, n, moduli), dev) for _ in range(size)])
+
+    u = NTT.forward(u, t)
+    c = U.mul_mod(u, public_key.data.data[:, :k], t.q, t.ratio_lo, t.ratio_hi)     # (size, k, n)
+    return Ciphertext(U.add_mod(NTT.forward(noise, t), c, t.q), parms_id, True, 1.0, 1)

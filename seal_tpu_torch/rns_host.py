@@ -46,6 +46,8 @@ class HostRNSBase:
             if not ok:
                 raise ValueError("rnsbase is invalid (non-invertible)")
             self.inv_punctured.append(inv)
+        # the decode's composition constants, built by ops/crt_compose.py once per device
+        self.device_cache: dict = {}
 
 
 class HostRNSTool:

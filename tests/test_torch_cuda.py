@@ -17,7 +17,10 @@ from seal_tpu_torch import golden
 from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_to_numpy
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.modulus import Modulus
-from seal_tpu_torch.ntt_tables import build_limb_tables
+from seal_tpu_torch.ntt_tables import build_limb_tables, four_step_tables_for
+from seal_tpu_torch.ops import four_step as FS
+from seal_tpu_torch.ops import ntt as NTT
+from seal_tpu_torch.ops.cuda_four_step import stage_cuda
 from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
 from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
 from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
@@ -80,6 +83,44 @@ def test_slice_on_card_gives_golden_digest(card):
     ev = Evaluator(ctx)
     out = ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk))
     assert golden.digest(u64_to_numpy(out.data)) == golden.GOLDEN_DIGEST
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [15, 16, 17])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stage_kernel_matches_plain(card, log_n, inverse):
+    """Both stages of a transform at N=32768 (256/128), 65536 (512/128)
+    and 131072 (512/256), then the whole transform against the butterflies."""
+    mods = CoeffModulus.create(1 << log_n, [60, 40, 60])
+    t = build_limb_tables(log_n, mods, device=card)
+    ft = four_step_tables_for(t)
+    x = _uniform((2, 3, 1 << log_n), t.q * (2 if inverse else 4), card, log_n)
+    specs = FS.inverse_specs(ft) if inverse else FS.forward_specs(ft)
+    mats = (ft.finv, ft.winv) if inverse else (ft.w, ft.f)
+    tws = ((ft.twi_op, ft.twi_qt) if inverse else (ft.tw_op, ft.tw_qt), None)
+    h = x
+    for spec, b, tw in zip(specs, mats, tws):
+        got = stage_cuda(h, b, ft, spec, tw)
+        assert torch.equal(got, FS.stage_plain(h, b, ft, spec, tw))
+        h = got
+    want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
+    assert torch.equal(h, want)
+    assert torch.equal((NTT.inverse if inverse else NTT.forward)(x, t), want)
+
+
+@pytest.mark.cuda
+def test_large_slice_on_card_runs_the_stage_kernel(card):
+    ctx = _context(golden.LARGE_N, list(golden.LARGE_BITS), card)
+    d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED)
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, card)
+    a = ciphertext_from_numpy(d1, ctx.first_parms_id, True, 2.0 ** 40, card)
+    b = ciphertext_from_numpy(d2, ctx.first_parms_id, True, 2.0 ** 40, card)
+    ev = Evaluator(ctx)
+    before = (stage_cuda.launches, ntt_cuda.launches, switch_key_contract_cuda.launches)
+    out = ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk))
+    after = (stage_cuda.launches, ntt_cuda.launches, switch_key_contract_cuda.launches)
+    assert golden.digest(u64_to_numpy(out.data)) == golden.LARGE_DIGEST
+    assert [y - x for x, y in zip(before, after)] == [12, 0, 0]
 
 
 def test_ntt_wrapper_refuses_what_the_kernel_does_not_take():

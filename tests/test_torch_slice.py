@@ -9,6 +9,12 @@
     rescale_to_next equals the JAX package's in data, scale and parms_id.
 (c) importing every module of the port loads neither JAX nor ``seal_tpu``.
 (d) a context with no device on a machine without CUDA raises.
+(e) the same pipeline at N=65536, bits [60, 40, 40, 60] (the size where the
+    card runs every NTT on the four-step stage kernel): the JAX pipeline and
+    the port's plain path both give ``golden.LARGE_DIGEST``.
+
+A CKKS user's whole computation at N=1024 (keygen to decode) is held
+against the JAX package in ``tests/test_torch_client.py``.
 
 Every comparison is exact equality of reduced residues: the slice is
 integer arithmetic.
@@ -128,6 +134,30 @@ def test_convert_round_trip():
     np.testing.assert_array_equal(keys[1][1], data[::-1])
     with pytest.raises(ValueError):
         ciphertext_from_numpy(data.astype(np.int64), (1, 2, 3, 4), True, 1.0, "cpu")
+
+
+@pytest.fixture(scope="module")
+def large_golden_outputs():
+    """The JAX pipeline and the port's plain path (CPU) at N=65536."""
+    n, bits = golden.LARGE_N, list(golden.LARGE_BITS)
+    jp = JaxParameters(JaxScheme.CKKS)
+    jp.set_poly_modulus_degree(n)
+    jp.set_coeff_modulus(JaxCoeffModulus.create(n, bits))
+    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    pctx = _port_context(n, bits)
+    d1, d2 = golden.request_inputs(pctx, golden.GOLDEN_REQUEST_SEED)
+    kc0, kc1 = golden.key_inputs(pctx, golden.GOLDEN_KEY_SEED)
+    args = (d1, d2, kc0, kc1)
+    jax_out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
+    port_out = u64_to_numpy(build_ckks_mult_relin_rescale(pctx)(*(u64_from_numpy(a, "cpu") for a in args)))
+    return jax_out, port_out
+
+
+def test_pipelines_give_large_golden_digest_at_n65536(large_golden_outputs):
+    jax_out, port_out = large_golden_outputs
+    assert jax_out.shape == (2, len(golden.LARGE_BITS) - 2, golden.LARGE_N)
+    assert golden.digest(jax_out) == golden.LARGE_DIGEST
+    np.testing.assert_array_equal(port_out, jax_out)
 
 
 def test_port_imports_neither_jax_nor_seal_tpu():
