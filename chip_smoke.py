@@ -35,7 +35,23 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
    on the plain path on the card, the splitmix request equal to the JAX
    package's N=65536 digest, the decoded products within 1e-3, the stage
    kernel's launches counted per step (kernels A and B never run at this
-   size); then the steps' times and a profiler split of the requests.
+   size); then the steps' times and a profiler split of the requests;
+8. the multi-device layer (``seal_tpu_torch/parallel``), every rank of each
+   8-rank mesh on this one card:
+   (a) phase 4's 8 requests as one batch through ``BatchEvaluator``, without
+       a mesh and on a (data 4, limb 2) mesh, bit-identical to phase 4's
+       outputs and the golden digest; ms per request, launches per request
+       (profiler), device-busy share, launches of kernels A and B per batch;
+       kernel B's batched launch per request;
+   (b) the distributed NTT at N=65536 over the 4 moduli of [60, 40, 40, 60],
+       P=8, forward and inverse on the stage and corner-turn kernels,
+       bit-identical to the single-card transform, the round trip giving the
+       input back, against the single-card time;
+   (c) the corner-turn kernel bit-exact against its plain version at (b)'s
+       shapes in both directions and at P=2, r=1, timed against its plain
+       version, one PyTorch permute+copy_ (its library yardstick) and its
+       bound;
+   (d) ``dryrun.dryrun_multichip(8, devices=[card] * 8)``.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -90,6 +106,21 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Device time of fn() per call, every kernel it launches summed, from a
+    profiler run of iters calls; None when the profiler sees no device."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
 
 
 def bound_ms(nbytes, ops):
@@ -149,6 +180,203 @@ def lazy_input(t, shape, factor, gen):
     bound = t.q * factor                                   # (k, 1)
     raw = torch.randint(0, 1 << 62, shape, dtype=torch.int64, device="cuda", generator=gen)
     return raw % bound
+
+
+def profile_run(fn):
+    """(wall ms, device launches, device busy ms) of one profiled call; the
+    last two None when the profiler recorded no device time."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return wall_ms, None, None
+    return wall_ms, len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def multi_device_phase(dev, ctx, cts, rk, seq_outs, big_t, gen):
+    """Phase 8: the batched server, the distributed NTT and the corner-turn
+    kernel, every rank of each 8-rank mesh on ``dev``.  Returns the corner
+    turn's entry of the kernels' JSON line and kernel B's batched time."""
+    from seal_tpu_torch import dryrun, golden
+    from seal_tpu_torch.convert import u64_to_numpy
+    from seal_tpu_torch.ntt_tables import four_step_tables_for
+    from seal_tpu_torch.ops import ntt as NTT
+    from seal_tpu_torch.ops.cuda_corner_turn import corner_turn_cuda
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+    from seal_tpu_torch.parallel.dist_ntt import DistNTT
+    from seal_tpu_torch.parallel.mesh import DeviceMesh, make_mesh
+    from seal_tpu_torch.parallel.remote_ntt import corner_turn_plain
+
+    ranks = [dev] * 8
+    requests = len(cts)
+
+    # (a) the batched server at N=8192
+    hem = make_mesh(8, limb_parallel=2, devices=ranks)
+    servers = {"one batch": BatchEvaluator(ctx), "(data 4, limb 2) mesh": BatchEvaluator(ctx, hem)}
+    expect = {"one batch": (5, 1), "(data 4, limb 2) mesh": (40, 8)}   # kernel A, kernel B per batch
+
+    def serve(bev):
+        b1 = bev.shard(CiphertextBatch.from_ciphertexts([a for a, _ in cts]))
+        b2 = bev.shard(CiphertextBatch.from_ciphertexts([b for _, b in cts]))
+        return bev.rescale_to_next(bev.relinearize(bev.multiply(b1, b2), rk)).unshard()
+
+    for label, bev in servers.items():
+        serve(bev)                                     # warm-up: plans and tables
+        torch.cuda.synchronize()
+        ntt_cuda.launches = switch_key_contract_cuda.launches = 0
+        stage_cuda.launches = corner_turn_cuda.launches = 0
+        out = serve(bev)
+        torch.cuda.synchronize()
+        a_n, b_n = ntt_cuda.launches, switch_key_contract_cuda.launches
+        check((a_n, b_n) == expect[label] and stage_cuda.launches == corner_turn_cuda.launches == 0,
+              f"batched server, {label}: launches A {a_n}, B {b_n}, stage {stage_cuda.launches}, "
+              f"corner turn {corner_turn_cuda.launches}; expected A, B = {expect[label]}")
+        for r in range(requests):
+            check(torch.equal(out.data[r], seq_outs[r].data) and out.scale == seq_outs[r].scale
+                  and out.parms_id == seq_outs[r].parms_id,
+                  f"batched server, {label}: request {r} differs from phase 4's")
+        dig = golden.digest(u64_to_numpy(out.data[0]))
+        check(dig == golden.GOLDEN_DIGEST, f"batched server, {label}: golden digest mismatch {dig}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            serve(bev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / requests)
+        wall, n_dev, busy = profile_run(lambda: serve(bev))
+        prof_line = ("the profiler recorded no device time: not measured" if n_dev is None else
+                     f"under the profiler {n_dev / requests:.1f} device launches per request, device busy "
+                     f"{busy:.3f} ms of {wall:.3f} ms ({100 * busy / wall:.1f}% of wall)")
+        print(f"[batched server] {label}: {requests} requests bit-identical to phase 4 and the golden digest; "
+              f"kernel A {a_n} and kernel B {b_n} launches per batch; ms per request over 3 runs "
+              f"{', '.join(f'{t:.3f}' for t in times)} (median {sorted(times)[1]:.3f}); {prof_line}")
+
+    plan = servers["one batch"].ev._plan(ctx.first_context_data())
+    D, n = plan.D, ctx.first_context_data().parms.poly_modulus_degree
+    Rn = plan.sel_tables.q.shape[0]
+    level_t = ctx.first_context_data().limb_tables()
+    t_n = lazy_input(level_t, (requests, D, n), 1, gen)
+    t_c = NTT.ntt_inverse(t_n, level_t)
+    key = lazy_input(plan.sel_tables, (2, D, Rn, n), 1, gen)
+    batched = switch_key_contract_cuda(t_c, t_n, key, plan.sel_tables, plan.need_reduce)
+    for r in range(requests):
+        check(torch.equal(batched[r], switch_key_contract_cuda(t_c[r], t_n[r], key, plan.sel_tables,
+                                                               plan.need_reduce)),
+              f"kernel B's batched launch differs from its single launch on request {r}")
+    sk_batch_ms = cuda_ms(lambda: switch_key_contract_cuda(t_c, t_n, key, plan.sel_tables, plan.need_reduce), 50)
+    sk_one_ms = cuda_ms(lambda: switch_key_contract_cuda(t_c[0], t_n[0], key, plan.sel_tables, plan.need_reduce), 50)
+    print(f"[batched server] kernel B, one launch for {requests} requests (D={D}, Rn={Rn}, N={n}): equal to "
+          f"{requests} single launches; {sk_batch_ms * 1e3:.2f} us per launch, {sk_batch_ms * 1e3 / requests:.2f} "
+          f"us per request (single launch {sk_one_ms * 1e3:.2f} us)")
+
+    # (b) the distributed NTT
+    ft = four_step_tables_for(big_t)
+    k, n_big = big_t.q.shape[0], 1 << big_t.log_n
+    dist = DistNTT(ft, DeviceMesh(ranks, ("limb",)))
+    x = lazy_input(big_t, (k, n_big), 4, gen)
+    want = NTT.forward(x, big_t)
+    x_red = torch.where(x >= 2 * big_t.q, x - 2 * big_t.q, x) % big_t.q
+    ntt_cuda.launches = switch_key_contract_cuda.launches = 0
+    stage_cuda.launches = corner_turn_cuda.launches = 0
+    fwd = dist.forward(x)
+    back = dist.inverse(fwd)
+    torch.cuda.synchronize()
+    turn_launches, dist_stages = corner_turn_cuda.launches, stage_cuda.launches
+    check(torch.equal(fwd, want), "the distributed NTT differs from the single-card transform")
+    check(torch.equal(back, x_red) and torch.equal(back, NTT.inverse(want, big_t)),
+          "the distributed NTT round trip does not give the input back")
+    check(turn_launches == 2 and dist_stages == 32,
+          f"the round trip launched the corner turn {turn_launches} and the stage kernel {dist_stages} "
+          f"times; expected 2 and 32")
+    dist_ms = (cuda_ms(lambda: dist.forward(x), 10), cuda_ms(lambda: dist.inverse(fwd), 10))
+    one_ms = (cuda_ms(lambda: NTT.forward(x, big_t), 10), cuda_ms(lambda: NTT.inverse(want, big_t), 10))
+    cols = dist.split_columns(x)
+    core_ms = cuda_ms(lambda: dist.forward_shards(cols), 10)
+    print(f"[distributed NTT] N={n_big}, {k} moduli, P=8 ranks (n1={ft.n1}, n2={ft.n2}: {dist.cols}-column and "
+          f"{dist.rows}-row shards): forward and inverse bit-identical to the single-card transform, the round "
+          f"trip gives the input back; round trip: {turn_launches} corner-turn and {dist_stages} stage launches")
+    print(f"[distributed NTT] forward {dist_ms[0] * 1e3:.1f} us, inverse {dist_ms[1] * 1e3:.1f} us (split and join "
+          f"included); single card: forward {one_ms[0] * 1e3:.1f} us, inverse {one_ms[1] * 1e3:.1f} us; "
+          f"the forward on shards alone {core_ms * 1e3:.1f} us")
+
+    # (c) the corner-turn kernel
+    P, r, c = 8, dist.rows, dist.cols
+    h = [a.view(k, P, r, c) for a in dist.split_columns(x)]          # (b)'s forward shape, any values
+    ht = [a.view(k, r, P, c) for a in dist.split_rows(x)]             # (b)'s inverse shape
+    cases = {
+        "forward": (h, lambda: [torch.empty((k, r, P, c), dtype=torch.int64, device=dev) for _ in range(P)],
+                    lambda d: d),
+        "inverse": ([a.transpose(1, 2) for a in ht],
+                    lambda: [torch.empty((k, P, r, c), dtype=torch.int64, device=dev) for _ in range(P)],
+                    lambda d: d.transpose(1, 2)),
+    }
+    odd = [torch.randint(0, 1 << 62, (k, 2, 1, 5), dtype=torch.int64, device=dev, generator=gen)
+           for _ in range(2)]                                             # P=2, r=1, c odd: 8-byte stores
+    got, ref = ([torch.empty((k, 1, 2, 5), dtype=torch.int64, device=dev) for _ in range(2)] for _ in range(2))
+    corner_turn_cuda(odd, got)
+    corner_turn_plain(odd, ref)
+    torch.cuda.synchronize()
+    max_err = max(int((a - b).abs().max()) for a, b in zip(got, ref))
+    check(max_err == 0, f"the corner turn disagrees with its plain version at P=2, r=1: max abs err {max_err}")
+    print("[corner turn] P=2, r=1, c=5 (4, 2, 1, 5) x 2 ranks: bit-exact")
+    turn = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    for label, (srcs, make, view) in cases.items():
+        bufs, refs = make(), make()
+        dsts, ref_dsts = [view(b) for b in bufs], [view(b) for b in refs]
+        corner_turn_cuda(srcs, dsts)
+        corner_turn_plain(srcs, ref_dsts)
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(bufs, refs))
+        check(err == 0, f"the corner turn disagrees with its plain version ({label}): max abs err {err}")
+        max_err = max(max_err, err)
+        # A launch's host side (the wrapper's checks, ctypes) outlasts the
+        # copy, so back-to-back launches timed by events measure the host;
+        # the profiler's kernel durations give the device time.
+        paced = {"kernel": cuda_ms(lambda: corner_turn_cuda(srcs, dsts), 200),
+                 "plain": cuda_ms(lambda: corner_turn_plain(srcs, ref_dsts), 200)}
+        ms = device_ms(lambda: corner_turn_cuda(srcs, dsts), 50)
+        plain_ms = device_ms(lambda: corner_turn_plain(srcs, ref_dsts), 50)
+        # the library yardstick: every rank's tensor stacked on the card, one permute + copy_
+        stacked = torch.stack([s.contiguous() if label == "forward" else s.transpose(1, 2).contiguous()
+                               for s in srcs])
+        whole = torch.stack(bufs)
+        perm = (2, 1, 3, 0, 4) if label == "forward" else (3, 1, 0, 2, 4)
+        whole.copy_(stacked.permute(*perm))
+        check(all(torch.equal(whole[j], bufs[j]) for j in range(P)), f"permute + copy_ differs ({label})")
+        paced["permute+copy_"] = cuda_ms(lambda: whole.copy_(stacked.permute(*perm)), 200)
+        lib_ms = device_ms(lambda: whole.copy_(stacked.permute(*perm)), 50)
+        if ms is None or plain_ms is None or lib_ms is None:
+            print("[corner turn] the profiler recorded no device time: the times below are host-paced")
+            ms, plain_ms, lib_ms = paced["kernel"], paced["plain"], paced["permute+copy_"]
+        nbytes = 2 * 8 * k * P * r * c * P                               # every element read once, written once
+        b, _ = bound_ms(nbytes, 0)
+        print(f"[corner turn] {label} {tuple(srcs[0].shape)} x {P} ranks: bit-exact; device time per call: kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, permute+copy_ {lib_ms * 1e3:.2f} us, bound "
+              f"{b * 1e3:.3f} us (bytes); back-to-back calls timed by events: "
+              + ", ".join(f"{name} {t * 1e3:.2f} us" for name, t in paced.items()))
+        turn["ms"] += ms
+        turn["plain_ms"] += plain_ms
+        turn["library_ms"] += lib_ms
+        turn["bytes"] += nbytes
+
+    # (d) the dryrun
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(8, devices=ranks)
+    torch.cuda.synchronize()
+    print(f"[dryrun] dryrun_multichip(8, devices=[{str(dev)!r}] * 8): OK in {time.perf_counter() - t0:.1f} s")
+
+    b_turn, by_turn = bound_ms(turn["bytes"], 0)
+    entry = {"name": "corner_turn", "route": "cuda", "source": "seal_tpu_torch/csrc/corner_turn.cu",
+             "replaces": "seal_tpu/parallel/remote_ntt.py:35", "launches": turn_launches,
+             "max_abs_err": max_err, "ms": turn["ms"], "plain_ms": turn["plain_ms"], "bound_ms": b_turn,
+             "bound_by": by_turn, "library_ms": turn["library_ms"]}
+    return entry, sk_batch_ms / requests
 
 
 def main():
@@ -577,6 +805,10 @@ def main():
           f"information, the dense product's {stage_totals['madds'] / 1e9:.3f} G multiply-adds and "
           f"{stage_totals['b_bytes'] / 1e6:.2f} MB of matrix reads")
 
+    # ---- phase 8: the multi-device layer ---------------------------------
+    turn_entry, sk_batched_ms = multi_device_phase(
+        torch.device("cuda", torch.cuda.current_device()), ctx, cts, rk, outs, lt_key, gen)
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
@@ -591,13 +823,17 @@ def main():
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
          "plain_ms": stage_totals["plain_ms"], "bound_ms": b_stage, "bound_by": by_stage, "library_ms": None},
+        turn_entry,
     ]}
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s; kernel A's ms, plain_ms and bound_ms "
           f"sum the five calls of one N=8192 request, the stage kernel's the twelve of one N=65536 request; its "
           f"launches count the whole N=65536 round trip, keygen to decode")
-    print("[done] library_ms is null for all three kernels: no PyTorch call computes a negacyclic NTT mod q, the "
-          "key-switch contraction or a modular matrix product (the CUDA int64 matmul is missing and does no "
-          "modular reduction)")
+    print("[done] library_ms is null for the first three kernels: no PyTorch call computes a negacyclic NTT mod q, "
+          "the key-switch contraction or a modular matrix product (the CUDA int64 matmul is missing and does no "
+          "modular reduction); the corner turn's numbers sum its forward and inverse turn of one N=65536 round "
+          "trip, its launches count the counted remote round trip, its library_ms is one permute+copy_ of the "
+          "stacked ranks per turn")
+    print(f"[done] kernel B batched over phase 4's {len(cts)} requests: {sk_batched_ms * 1e3:.2f} us per request")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,140 @@
+"""The ring bodies of the CKKS server ops, on local tensors.
+
+The dyadic convolution of ``multiply`` and the two halves of the key switch
+(the contraction over decomposition limbs, and the tail that switches the
+special prime away), with the per-level device constants they read
+(:class:`KeySwitchPlan`).  Each body takes (..., size, k, n) data on one
+device; the limb range [lo, hi) it is given lets a rank of a mesh run it on
+its own limbs.  ``evaluator.py`` runs them on whole ciphertexts, the mesh
+bodies (``parallel/sharded.py``) on every rank's shard.
+
+On the card the NTT sites and the contraction launch the hand-written
+kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the rest is
+elementwise mod-q arithmetic in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .context import ContextData, SealContext
+from .ntt_tables import LimbTables
+from .ops import ntt as NTT
+from .ops import u64 as U
+from .ops.cuda_switch_key import switch_key_contract
+from .ops.rns import _c, _cshoup, _ratio, slice_limbs, take_limbs
+
+
+class KeySwitchPlan:
+    """Device constants of the CKKS key switch at one level
+    (``seal_tpu/evaluator.py:541-690``), built once per level and device.
+
+    A rank of a mesh that holds limbs [lo, hi) of the level reads the rows
+    [lo, hi) of the per-limb constants and the bundles of :meth:`level` and
+    :meth:`dec`.
+    """
+
+    def __init__(self, context: SealContext, cd: ContextData, device=None):
+        dev = cd.device if device is None else torch.device(device)
+        key_cd = context.key_context_data()
+        key_moduli = key_cd.coeff_modulus_values
+        key_tables = key_cd.limb_tables(dev)
+        qv = cd.coeff_modulus_values
+        D = len(qv)                              # decomp modulus size
+        k_key = len(key_moduli)
+        sel_idx = list(range(D)) + [k_key - 1]   # output limb -> key modulus
+        sel_vals = [key_moduli[i] for i in sel_idx]
+        self.D = D
+        self.key_columns = torch.tensor(sel_idx, device=dev)
+        self.sel_tables = take_limbs(key_tables, sel_idx)
+        self.need_reduce = torch.tensor([[qj > qi for qi in sel_vals] for qj in qv], device=dev)
+        self.last_tab = slice_limbs(key_tables, k_key - 1, k_key)
+        self.dec_tab = slice_limbs(key_tables, 0, D)  # decomp moduli are key moduli[0:D]
+
+        qk = key_moduli[-1]
+        qk_half = qk >> 1
+        self.qk_half = _c([qk_half], dev)
+        self.qk = _c([qk], dev)
+        self.qk_ratio_hi = _ratio([qk], dev)[1]
+        self.dq = _c(qv, dev)
+        self.dq_ratio_hi = _ratio(qv, dev)[1]
+        self.qk_above = torch.tensor([[qk > qi] for qi in qv], device=dev)
+        self.fix = _c([qi - (qk_half % qi) for qi in qv], dev)
+        self.four_q = _c([qi << 2 for qi in qv], dev)
+        self.ms_op, self.ms_qt = _cshoup(key_cd.rns_tool.inv_q_last_mod_q[:D], qv, dev)
+        self.level_tab = cd.limb_tables(dev)
+        self._cut = {}
+
+    def _cut_tables(self, which: str, whole: LimbTables, lo: int, hi: int) -> LimbTables:
+        if (lo, hi) == (0, self.D):
+            return whole
+        cut = self._cut.get((which, lo, hi))
+        if cut is None:
+            cut = self._cut[(which, lo, hi)] = slice_limbs(whole, lo, hi)
+        return cut
+
+    def level(self, lo: int, hi: int) -> LimbTables:
+        """The level's tables for limbs [lo, hi)."""
+        return self._cut_tables("level", self.level_tab, lo, hi)
+
+    def dec(self, lo: int, hi: int) -> LimbTables:
+        """The key level's tables for decomposition limbs [lo, hi)."""
+        return self._cut_tables("dec", self.dec_tab, lo, hi)
+
+
+def convolve(d1: torch.Tensor, d2: torch.Tensor, t) -> torch.Tensor:
+    """Dyadic convolution out[i] = sum_{j+k=i} d1[j] * d2[k], all reduced,
+    over the polynomial axis -3 of (..., size, k, n) data.
+
+    All products go through one batched ``mul_mod``; the sums are exact
+    residues, so the result equals the JAX package's term-by-term loop
+    (its square fast path doubles cross terms to the same residues).
+    """
+    s1, s2 = d1.shape[-3], d2.shape[-3]
+    pairs = [(j, i - j) for i in range(s1 + s2 - 1)
+             for j in range(max(0, i - s2 + 1), min(i, s1 - 1) + 1)]
+    js = torch.tensor([p[0] for p in pairs], device=d1.device)
+    ks = torch.tensor([p[1] for p in pairs], device=d1.device)
+    prods = U.mul_mod(d1.index_select(-3, js), d2.index_select(-3, ks), t.q, t.ratio_lo, t.ratio_hi)
+    dest = [None] * (s1 + s2 - 1)
+    for p, (j, k) in enumerate(pairs):
+        term = prods.select(-3, p)
+        dest[j + k] = term if dest[j + k] is None else U.add_mod(dest[j + k], term, t.q)
+    return torch.stack(dest, dim=-3)
+
+
+def key_switch_contract(plan: KeySwitchPlan, target: torch.Tensor, key_c0: torch.Tensor,
+                        key_c1: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The key-switch sum over decomposition limbs [lo, hi): ``target``
+    (..., hi - lo, n) holds those limbs in NTT form, ``key_c0``/``key_c1``
+    their key rows (hi - lo, k_key, n).  Returns (..., 2, Rn, n) < q_i."""
+    t_target = NTT.inverse(target.contiguous(), plan.level(lo, hi))     # (..., D, n) < q
+
+    # Select key columns (D', k_key, n) -> (D', Rn, n) and stack both
+    # components: (2, D', Rn, n); the contraction uses rows [0, hi - lo).
+    kc = torch.stack([key_c0.index_select(1, plan.key_columns),
+                      key_c1.index_select(1, plan.key_columns)])
+    return switch_key_contract(t_target, target.contiguous(), kc, plan.sel_tables,
+                               plan.need_reduce[lo:hi], row_offset=lo)
+
+
+def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tensor,
+                    lo: int, hi: int) -> torch.Tensor:
+    """Switch the special prime away and add into the ciphertext
+    (evaluator.cpp:2806-2865), on limbs [lo, hi): ``prod`` is the whole
+    sum (..., 2, Rn, n), ``ct_data`` (..., size, hi - lo, n) those limbs
+    of the ciphertext."""
+    D = plan.D
+    dq = plan.dq[lo:hi]
+    t_last = prod[..., D:, :].contiguous()                              # (..., 2, 1, n) NTT mod qk
+    rest = prod[..., lo:hi, :]                                           # (..., 2, hi-lo, n) NTT mod q_i
+    t_last_c = NTT.inverse(t_last, plan.last_tab, lazy=True)            # < 2qk
+    t_last_c = U.barrett_reduce_64(t_last_c + plan.qk_half, plan.qk, plan.qk_ratio_hi)
+    red = U.barrett_reduce_64(t_last_c, dq, plan.dq_ratio_hi[lo:hi])
+    t_ntt = torch.where(plan.qk_above[lo:hi], red, t_last_c) + plan.fix[lo:hi]  # < 2q_i
+    t_ntt = NTT.forward(t_ntt, plan.dec(lo, hi), lazy=True)             # < 4q_i
+    new = U.mul_mod_shoup(rest + plan.four_q[lo:hi] - t_ntt, plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
+
+    out = ct_data.clone()
+    out[..., :2, :, :] = U.add_mod(new, ct_data[..., :2, :, :], dq)
+    return out

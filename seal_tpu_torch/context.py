@@ -112,7 +112,7 @@ class ContextData:
         self.base_q: Optional[HostRNSBase] = None
         self.ntt_tables: List[HostNTTTables] = []
         self.rns_tool: Optional[HostRNSTool] = None
-        self._limb_tables: Optional[LimbTables] = None
+        self._limb_tables: Dict[torch.device, LimbTables] = {}
 
     @property
     def parms_id(self) -> ParmsId:
@@ -130,13 +130,15 @@ class ContextData:
     def log_n(self) -> int:
         return self.parms.poly_modulus_degree.bit_length() - 1
 
-    def limb_tables(self) -> LimbTables:
-        """NTT + modulus constants for base q at this level, on the device."""
-        if self._limb_tables is None:
-            self._limb_tables = build_limb_tables(
-                self.log_n, self.parms.coeff_modulus, self.ntt_tables, device=self.device
-            )
-        return self._limb_tables
+    def limb_tables(self, device=None) -> LimbTables:
+        """NTT + modulus constants for base q at this level, on the context's
+        device or, for a rank of a mesh, on ``device``; built once per device."""
+        device = self.device if device is None else torch.device(device)
+        tables = self._limb_tables.get(device)
+        if tables is None:
+            tables = build_limb_tables(self.log_n, self.parms.coeff_modulus, self.ntt_tables, device=device)
+            self._limb_tables[device] = tables
+        return tables
 
 
 class SealContext:

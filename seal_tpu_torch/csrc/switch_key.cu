@@ -10,6 +10,13 @@
 // one final Barrett: out (2, Rn, n) in [0, q_i).  Key rows beyond D are not
 // read (the key may carry more decomposition rows than the level has limbs).
 //
+// Two axes the TPU kernel did not have.  A batch of B ciphertexts sharing one
+// key runs in one launch, grid axis y over them, the way vmap adds a grid
+// axis to _sk_kernel.  And a rank of a mesh that holds decomposition rows
+// [j0, j0 + D) contracts only those (parallel/batch.py adds the ranks'
+// partial sums mod q_i): row j is decomposition row j0 + j, so the i == j
+// fast path compares i with j0 + j.
+//
 // The TPU walked j in order on one core and carried the u128 sum in VMEM
 // scratch between grid steps.  Blocks on the card run in no order, so the
 // loop over j lives inside the block: one block per output limb i.
@@ -66,17 +73,21 @@ __device__ __forceinline__ uint64_t barrett_reduce_128(u128 z, uint64_t q, uint6
     return guard(z0 - quot * q, q);
 }
 
-// Block i = output limb; blockDim.x * PER == n; thread t owns coefficients
-// t + r * blockDim.x, r < PER.
+// Block (i, b) = output limb i of ciphertext b; blockDim.x * PER == n;
+// thread t owns coefficients t + r * blockDim.x, r < PER.
 template <int PER>
 __global__ void __launch_bounds__(1024) switch_key_kernel(const uint64_t* __restrict__ t_c, const uint64_t* __restrict__ t_n,
                                   const uint64_t* __restrict__ key, const uint8_t* __restrict__ need_reduce,
                                   const uint64_t* __restrict__ op, const uint64_t* __restrict__ qt,
                                   const uint64_t* __restrict__ qv, const uint64_t* __restrict__ ratio_lo,
                                   const uint64_t* __restrict__ ratio_hi, uint64_t* __restrict__ out,
-                                  int D, int key_rows, int Rn, int log_n) {
+                                  int D, int key_rows, int Rn, int log_n, int j0) {
     const int n = 1 << log_n;
     const int i = blockIdx.x;
+    const size_t b = blockIdx.y;
+    t_c += b * D * n;
+    if (t_n != nullptr) t_n += b * D * n;
+    out += b * 2 * Rn * n;
     const uint64_t q = qv[i];
     const uint64_t r_lo = ratio_lo[i];
     const uint64_t r_hi = ratio_hi[i];
@@ -87,7 +98,7 @@ __global__ void __launch_bounds__(1024) switch_key_kernel(const uint64_t* __rest
     for (int r = 0; r < PER; ++r) acc0[r] = acc1[r] = 0;
 
     for (int j = 0; j < D; ++j) {
-        if (t_n != nullptr && i == j) {
+        if (t_n != nullptr && i == j0 + j) {
             for (int r = 0; r < PER; ++r) {
                 const int c = threadIdx.x + r * blockDim.x;
                 row_smem[c] = t_n[static_cast<size_t>(j) * n + c];
@@ -133,35 +144,37 @@ __global__ void __launch_bounds__(1024) switch_key_kernel(const uint64_t* __rest
 template <int PER>
 int launch(const void* t_c, const void* t_n, const void* key, const void* need_reduce,
            const void* op, const void* qt, const void* q, const void* ratio_lo,
-           const void* ratio_hi, void* out, int D, int key_rows, int Rn, int log_n,
+           const void* ratio_hi, void* out, int B, int D, int key_rows, int Rn, int log_n, int j0,
            cudaStream_t stream) {
     const int smem = static_cast<int>(sizeof(uint64_t)) << log_n;
     cudaError_t err = cudaFuncSetAttribute(switch_key_kernel<PER>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    switch_key_kernel<PER><<<Rn, (1 << log_n) / PER, smem, stream>>>(
+    switch_key_kernel<PER><<<dim3(Rn, B), (1 << log_n) / PER, smem, stream>>>(
         static_cast<const uint64_t*>(t_c), static_cast<const uint64_t*>(t_n),
         static_cast<const uint64_t*>(key), static_cast<const uint8_t*>(need_reduce),
         static_cast<const uint64_t*>(op), static_cast<const uint64_t*>(qt),
         static_cast<const uint64_t*>(q), static_cast<const uint64_t*>(ratio_lo),
-        static_cast<const uint64_t*>(ratio_hi), static_cast<uint64_t*>(out), D, key_rows, Rn, log_n);
+        static_cast<const uint64_t*>(ratio_hi), static_cast<uint64_t*>(out), D, key_rows, Rn, log_n, j0);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// t_c, t_n: (D, n); key: (2, key_rows, Rn, n) with key_rows >= D; need_reduce:
-// (D, Rn) bytes; op, qt: (Rn, n); q, ratio_lo, ratio_hi: (Rn,); out: (2, Rn, n).
-// t_n may be null (no diagonal substitution).  8 <= n <= 16384.
+// t_c, t_n: (B, D, n), decomposition rows [j0, j0 + D); key: two components
+// of D rows of (Rn, n) each, row j of component c at key + (c * key_rows + j)
+// * Rn * n (key_rows >= D); need_reduce: (D, Rn) bytes of those rows; op, qt:
+// (Rn, n); q, ratio_lo, ratio_hi: (Rn,); out: (B, 2, Rn, n).  t_n may be null
+// (no diagonal substitution).  8 <= n <= 16384, 1 <= B <= 65535.
 extern "C" int seal_switch_key_contract(const void* t_c, const void* t_n, const void* key,
                                         const void* need_reduce, const void* op, const void* qt,
                                         const void* q, const void* ratio_lo, const void* ratio_hi,
-                                        void* out, int D, int key_rows, int Rn, int log_n,
-                                        void* stream) {
+                                        void* out, int B, int D, int key_rows, int Rn, int log_n,
+                                        int j0, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (log_n <= 13)
-        return launch<8>(t_c, t_n, key, need_reduce, op, qt, q, ratio_lo, ratio_hi, out, D,
-                         key_rows, Rn, log_n, s);
-    return launch<16>(t_c, t_n, key, need_reduce, op, qt, q, ratio_lo, ratio_hi, out, D, key_rows,
-                      Rn, log_n, s);
+        return launch<8>(t_c, t_n, key, need_reduce, op, qt, q, ratio_lo, ratio_hi, out, B, D,
+                         key_rows, Rn, log_n, j0, s);
+    return launch<16>(t_c, t_n, key, need_reduce, op, qt, q, ratio_lo, ratio_hi, out, B, D,
+                      key_rows, Rn, log_n, j0, s);
 }

@@ -72,11 +72,13 @@ class Ciphertext:
     def is_transparent(self) -> bool:
         """True if every poly beyond c0 is zero (cf. ``ciphertext.h:451``).
 
-        Reads one flag back from the device, which waits for the data.
+        Reads one flag back from the device (from each rank's, for data
+        sharded over a mesh), which waits for the data.
         """
         if self.size < 2:
             return True
-        return not bool(torch.any(self.data[1:] != 0))
+        parts = getattr(self.data, "shards", [self.data])
+        return not any(bool(torch.any(p[1:] != 0)) for p in parts)
 
 
 class SecretKey:

@@ -67,20 +67,29 @@ def divide_and_round_q_last_ntt(x: torch.Tensor, tool: HostRNSTool, tables: Limb
     Returns (..., k-1, n) in [0, q_i).
     """
     k = tool.base_q.size
-    c = _rescale_constants(tool, x.device)
-    x_last = x[..., k - 1 :, :]
-    x_rest = x[..., : k - 1, :]
+    return divide_and_round_q_last_ntt_limbs(x[..., : k - 1, :], x[..., k - 1 :, :], 0, tool, tables)
+
+
+def divide_and_round_q_last_ntt_limbs(x_rest: torch.Tensor, x_last: torch.Tensor, lo: int,
+                                      tool: HostRNSTool, tables: LimbTables) -> torch.Tensor:
+    """Limbs [lo, lo + x_rest.shape[-2]) of the rescale, from those limbs of
+    the input and its last limb ``x_last`` (..., 1, n): what a rank of a
+    mesh that holds those limbs computes.  ``tables`` covers base q."""
+    k = tool.base_q.size
+    hi = lo + x_rest.shape[-2]
+    c = _rescale_constants(tool, x_rest.device)
     last_tab = slice_limbs(tables, k - 1, k)
-    rest_tab = slice_limbs(tables, 0, k - 1)
+    rest_tab = slice_limbs(tables, lo, hi)
+    rest_q = c.rest_q[lo:hi]
 
     last_coeff = NTT.inverse(x_last.contiguous(), last_tab)
     last_plus = U.add_mod(last_coeff, c.half, c.q_last)
-    reduced = U.barrett_reduce_64(last_plus, c.rest_q, c.rest_ratio_hi)
-    temp = torch.where(c.need_reduce, reduced, last_plus)
+    reduced = U.barrett_reduce_64(last_plus, rest_q, c.rest_ratio_hi[lo:hi])
+    temp = torch.where(c.need_reduce[lo:hi], reduced, last_plus)
     # lazy subtract of half: temp += q_i - (half mod q_i); stays < 2q_i
-    temp = NTT.forward(temp + c.neg_half, rest_tab, lazy=True)   # < 4q_i
+    temp = NTT.forward(temp + c.neg_half[lo:hi], rest_tab, lazy=True)   # < 4q_i
     # x_i + 4q_i - temp, then Shoup-reduce via multiply
-    return U.mul_mod_shoup(x_rest + c.four_q - temp, c.inv_op, c.inv_qt, c.rest_q)
+    return U.mul_mod_shoup(x_rest + c.four_q[lo:hi] - temp, c.inv_op[lo:hi], c.inv_qt[lo:hi], rest_q)
 
 
 def slice_limbs(t: LimbTables, start: int, stop: int) -> LimbTables:

@@ -7,6 +7,7 @@ function over raw ciphertext tensors, what an HE server runs per request.
 from __future__ import annotations
 
 from .context import SealContext
+from .ckks_bodies import convolve
 from .evaluator import Evaluator
 from .ops import rns as R
 
@@ -23,7 +24,7 @@ def build_ckks_mult_relin_rescale(context: SealContext):
 
     def fn(d1, d2, kc0, kc1):
         t = cd.limb_tables()
-        data3 = ev._convolve(d1, d2, t)
+        data3 = convolve(d1, d2, t)
         data2 = ev._switch_key_body(cd, 2, data3[:2], data3[2], kc0, kc1)
         return R.divide_and_round_q_last_ntt(data2, cd.rns_tool, t)
 

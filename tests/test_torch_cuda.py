@@ -24,6 +24,10 @@ from seal_tpu_torch.ops.cuda_four_step import stage_cuda
 from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
 from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
 from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
+from seal_tpu_torch.ops.cuda_corner_turn import corner_turn_cuda
+from seal_tpu_torch.parallel.dist_ntt import DistNTT
+from seal_tpu_torch.parallel.mesh import DeviceMesh
+from seal_tpu_torch.parallel.remote_ntt import corner_turn_plain
 
 
 @pytest.fixture
@@ -134,3 +138,121 @@ def test_ntt_wrapper_refuses_n_beyond_shared_memory():
     t = build_limb_tables(15, [Modulus(786433)], device="cpu")
     with pytest.raises(ValueError, match="n <= 16384"):
         ntt_cuda(torch.zeros((1, 1 << 15), dtype=torch.int64), t, inverse=True)
+
+
+def _corner_case(P, k, r, c, devices, transposed, seed):
+    """Sources and two sets of destinations for a corner turn over ranks on
+    ``devices``; with ``transposed``, the views the inverse transform uses."""
+    srcs, dsts, want = [], [], []
+    for m in range(P):
+        dev = devices[m]
+        if transposed:
+            srcs.append(_uniform((k, r, P, c), 1 << 60, dev, seed + m).transpose(1, 2))
+            dsts.append(torch.empty((k, P, r, c), dtype=torch.int64, device=dev).transpose(1, 2))
+            want.append(torch.empty((k, P, r, c), dtype=torch.int64, device=dev).transpose(1, 2))
+        else:
+            srcs.append(_uniform((k, P, r, c), 1 << 60, dev, seed + m))
+            dsts.append(torch.empty((k, r, P, c), dtype=torch.int64, device=dev))
+            want.append(torch.empty((k, r, P, c), dtype=torch.int64, device=dev))
+    return srcs, dsts, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, k, r, c", [(8, 4, 64, 16), (8, 2, 8, 16), (2, 3, 1, 5), (2, 1, 1, 16)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_corner_turn_kernel_matches_plain(card, P, k, r, c, transposed):
+    """Every rank on one card: one launch; N=65536's and N=8192's shapes at
+    P=8, and odd ones (c odd takes the 8-byte loop)."""
+    srcs, dsts, want = _corner_case(P, k, r, c, [card] * P, transposed, P + c)
+    before = corner_turn_cuda.launches
+    corner_turn_cuda(srcs, dsts)
+    assert corner_turn_cuda.launches == before + 1
+    corner_turn_plain(srcs, want)
+    assert all(torch.equal(a, b) for a, b in zip(dsts, want))
+
+
+@pytest.mark.cuda
+def test_corner_turn_across_two_cards(card):
+    """Ranks alternating between two cards: peer access, one launch per
+    card, and the distributed NTT equal to the single-card transform.  The
+    one-card machine the smoke run uses leaves this unrun."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    devices = [torch.device("cuda", m % 2) for m in range(4)]
+    srcs, dsts, want = _corner_case(4, 2, 16, 16, devices, False, 7)
+    before = corner_turn_cuda.launches
+    corner_turn_cuda(srcs, dsts)
+    assert corner_turn_cuda.launches == before + 2
+    corner_turn_plain(srcs, want)
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert all(torch.equal(a, b) for a, b in zip(dsts, want))
+    mods = CoeffModulus.create(8192, [60, 40])
+    t = build_limb_tables(13, mods, device=card)
+    dist = DistNTT(four_step_tables_for(t), DeviceMesh(devices, ("limb",)))
+    x = _uniform((2, 8192), t.q * 4, card, 3)
+    assert torch.equal(dist.forward(x, "remote"), NTT.forward(x, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("rows", [(0, 3), (1, 3)])
+def test_batched_switch_key_kernel_matches_single_launches(card, diag, rows):
+    """B=3 ciphertexts in one launch against three launches, on all the
+    decomposition rows and on rows [1, 3) of a sliced key (a limb rank's
+    share; the diagonal then sits at i == 1 + j)."""
+    ctx = _context(4096, [60, 40, 40, 60], card)
+    cd = ctx.first_context_data()
+    plan = Evaluator(ctx)._plan(cd)
+    t = plan.sel_tables
+    lo, hi = rows
+    level = build_limb_tables(12, cd.parms.coeff_modulus[lo:hi], device=card)
+    t_n = _uniform((3, hi - lo, 4096), level.q, card, 1)
+    t_c = ntt_inverse(t_n, level)
+    key = _uniform((2, plan.D + 1, t.q.shape[0], 4096), t.q, card, 2)[:, lo:hi]
+    t_n = t_n if diag else None
+    need = plan.need_reduce[lo:hi]
+    before = switch_key_contract_cuda.launches
+    got = switch_key_contract_cuda(t_c, t_n, key, t, need, row_offset=lo)
+    assert switch_key_contract_cuda.launches == before + 1 and got.shape == (3, 2, t.q.shape[0], 4096)
+    for b in range(3):
+        one = switch_key_contract_cuda(t_c[b], None if t_n is None else t_n[b], key, t, need, row_offset=lo)
+        assert torch.equal(got[b], one)
+    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, t, need, row_offset=lo))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [13, 16])
+def test_stage_kernel_on_rank_shards(card, log_n):
+    """The distributed NTT's stages over 8 ranks: column shards of n2/8
+    (16 columns at both sizes) and row shards of n1/8 (8 rows at N=8192,
+    64 at N=65536), against the plain stage and the single-card transform."""
+    mods = CoeffModulus.create(1 << log_n, [60, 40, 40, 60])
+    t = build_limb_tables(log_n, mods, device=card)
+    ft = four_step_tables_for(t)
+    dist = DistNTT(ft, DeviceMesh([card] * 8, ("limb",)))
+    assert dist.cols == 16 and dist.rows == (8 if log_n == 13 else 64)
+    x = _uniform((4, 1 << log_n), t.q * 4, card, log_n)
+    for m, col in enumerate(dist.split_columns(x)):
+        args = (col, ft.w, dist.tables[m], dist.spec_cols, dist.tw[m])
+        assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
+    for m, row in enumerate(dist.split_rows(x)):
+        args = (row, ft.finv, dist.tables[m], dist.spec_rows, dist.twi[m])
+        assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
+    before = corner_turn_cuda.launches
+    fwd = dist.forward(x)
+    assert torch.equal(fwd, NTT.forward(x, t))
+    assert torch.equal(dist.inverse(fwd), torch.where(x >= 2 * t.q, x - 2 * t.q, x) % t.q)
+    assert corner_turn_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_dryrun_on_one_card(card):
+    from seal_tpu_torch.dryrun import dryrun_multichip
+    dryrun_multichip(8, devices=[card] * 8)
+
+
+def test_corner_turn_wrapper_refuses_cpu_tensors():
+    x = torch.zeros((1, 2, 1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        corner_turn_cuda([x, x], [torch.zeros((1, 1, 2, 4), dtype=torch.int64)] * 2)

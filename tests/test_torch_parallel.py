@@ -1,0 +1,283 @@
+"""The port's multi-device layer against the JAX package, on CPU meshes.
+
+The JAX package runs on its 8 virtual CPU devices (``tests/conftest.py``),
+the port on 8-rank meshes of ``["cpu"] * 8``.  Inputs are uniform residues
+made with numpy from a seed and carried across as numpy uint64 arrays:
+
+(a) ``BatchEvaluator`` multiply -> relinearize -> rescale_to_next at N=64,
+    bits [40, 30, 30, 30, 40], B=8 (the shape of ``tests/test_parallel.py``):
+    the port's batch, unsharded and on the (4, 2) and (2, 2, 2) meshes,
+    equals the JAX package's batch, and each request equals the port's
+    single-ciphertext evaluator;
+(b) batched add, sub, negate and square against the JAX package's;
+(c) ``Evaluator(mesh=...)`` against the evaluator without a mesh;
+(d) the sharded contraction of ``tests/test_shard_ops.py``, as relinearize
+    runs it, against the one-device contraction and exact integers;
+(e) placement: meshes, the uneven limb split after a rescale, the
+    collectives' layouts, and what raises.
+
+Every comparison is exact equality.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from seal_tpu.context import SealContext as JaxContext
+from seal_tpu.data import RelinKeys as JaxRelinKeys
+from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
+from seal_tpu.ops import u64 as JU
+from seal_tpu.parallel import BatchEvaluator as JaxBatchEvaluator
+from seal_tpu.parallel.batch import CiphertextBatch as JaxCiphertextBatch
+from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as JaxScheme
+
+import seal_tpu_torch as P
+from seal_tpu_torch.ckks_bodies import key_switch_contract
+from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_from_numpy, u64_to_numpy
+from seal_tpu_torch.evaluator import Evaluator
+from seal_tpu_torch.parallel import collectives as C
+from seal_tpu_torch.parallel import sharded
+from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+from seal_tpu_torch.parallel.mesh import PartitionSpec, make_mesh, shard, shard_kswitch_key, split_bounds
+from seal_tpu_torch.parallel.shard_ops import gather_add_mod
+
+N, BITS, B, SCALE = 64, [40, 30, 30, 30, 40], 8, 2.0 ** 30
+CPU8 = ["cpu"] * 8
+MESHES = {
+    "data4_limb2": dict(limb_parallel=2),
+    "host2_data2_limb2_replicated_keys": dict(limb_parallel=2, hosts=2, replicate_keys=True),
+}
+
+
+def _residues(rng, moduli, lead):
+    q = np.array(moduli, dtype=np.uint64).reshape(-1, 1)
+    return rng.integers(0, q, (*lead, len(moduli), N), dtype=np.uint64)
+
+
+@pytest.fixture(scope="module")
+def state():
+    """Both contexts, the numpy inputs, and the JAX package's batched outputs."""
+    jp = JaxParameters(JaxScheme.CKKS)
+    jp.set_poly_modulus_degree(N)
+    jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
+    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    pp = P.EncryptionParameters(P.SchemeType.CKKS)
+    pp.set_poly_modulus_degree(N)
+    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+    assert jctx.first_parms_id == pctx.first_parms_id
+
+    rng = np.random.default_rng(2024)
+    qv = pctx.first_context_data().coeff_modulus_values
+    d1, d2 = _residues(rng, qv, (B, 2)), _residues(rng, qv, (B, 2))
+    kc0, kc1 = (_residues(rng, pctx.key_context_data().coeff_modulus_values, (len(qv),)) for _ in range(2))
+
+    jrk = JaxRelinKeys()
+    jrk.parms_id = jctx.key_parms_id
+    jrk.keys = [{"c0": JU.from_np_u64(kc0), "c1": JU.from_np_u64(kc1), "seeds": None}]
+    jbev = JaxBatchEvaluator(jctx)
+
+    def jbatch(d):
+        return JaxCiphertextBatch(JU.from_np_u64(d), jctx.first_parms_id, True, SCALE, 1)
+
+    jb1, jb2 = jbatch(d1), jbatch(d2)
+    jprod = jbev.multiply(jb1, jb2)
+    jrelin = jbev.relinearize(jprod, jrk)
+    jout = jbev.rescale_to_next(jrelin)
+    jax_out = {
+        "multiply": JU.to_np_u64(jprod.data), "relinearize": JU.to_np_u64(jrelin.data),
+        "rescale_to_next": JU.to_np_u64(jout.data), "scale": jout.scale, "parms_id": jout.parms_id,
+        "add": JU.to_np_u64(jbev.add(jb1, jb2).data), "sub": JU.to_np_u64(jbev.sub(jb1, jb2).data),
+        "negate": JU.to_np_u64(jbev.negate(jb1).data), "square": JU.to_np_u64(jbev.square(jb1).data),
+    }
+    rk = relin_keys_from_numpy([(kc0, kc1)], pctx.key_parms_id, "cpu")
+    return {"ctx": pctx, "d1": d1, "d2": d2, "rk": rk, "kc": (kc0, kc1), "jax": jax_out}
+
+
+def _batches(s):
+    def batch(d):
+        return CiphertextBatch(u64_from_numpy(d, "cpu"), s["ctx"].first_parms_id, True, SCALE)
+    return batch(s["d1"]), batch(s["d2"])
+
+
+def _pipeline(bev, b1, b2, rk):
+    prod = bev.multiply(b1, b2)
+    relin = bev.relinearize(prod, rk)
+    return prod, relin, bev.rescale_to_next(relin)
+
+
+def test_batched_pipeline_matches_jax_and_single_evaluator(state):
+    b1, b2 = _batches(state)
+    outs = _pipeline(BatchEvaluator(state["ctx"]), b1, b2, state["rk"])
+    for name, got in zip(("multiply", "relinearize", "rescale_to_next"), outs):
+        np.testing.assert_array_equal(u64_to_numpy(got.data), state["jax"][name], err_msg=name)
+    out = outs[-1]
+    assert out.scale == state["jax"]["scale"] and out.parms_id == state["jax"]["parms_id"]
+    ev = Evaluator(state["ctx"])
+    for i in range(B):
+        a = ciphertext_from_numpy(state["d1"][i], state["ctx"].first_parms_id, True, SCALE, "cpu")
+        b = ciphertext_from_numpy(state["d2"][i], state["ctx"].first_parms_id, True, SCALE, "cpu")
+        single = ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), state["rk"]))
+        assert torch.equal(out[i].data, single.data) and out[i].scale == single.scale
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_pipeline_matches_jax_and_unsharded(state, mesh):
+    hem = make_mesh(8, devices=CPU8, **MESHES[mesh])
+    bev = BatchEvaluator(state["ctx"], hem)
+    b1, b2 = (bev.shard(b) for b in _batches(state))
+    for name, got in zip(("multiply", "relinearize", "rescale_to_next"), _pipeline(bev, b1, b2, state["rk"])):
+        assert got.data.spec == hem.ct_batch_spec()
+        np.testing.assert_array_equal(u64_to_numpy(got.data.unshard()), state["jax"][name], err_msg=name)
+    b1, b2 = _batches(state)
+    want = _pipeline(BatchEvaluator(state["ctx"]), b1, b2, state["rk"])[-1]
+    got = _pipeline(bev, bev.shard(b1), bev.shard(b2), state["rk"])[-1]
+    assert torch.equal(got.unshard().data, want.data) and got.scale == want.scale
+
+
+def test_rescale_splits_the_remaining_limbs_like_tensor_split(state):
+    """After a rescale, 4 limbs over a limb axis of 2 (2 + 2) become 3,
+    split 2 + 1."""
+    hem = make_mesh(8, limb_parallel=2, devices=CPU8)
+    bev = BatchEvaluator(state["ctx"], hem)
+    b1, b2 = (bev.shard(b) for b in _batches(state))
+    relin = bev.relinearize(bev.multiply(b1, b2), state["rk"])
+    assert [s.shape[2] for s in relin.data.shards] == [2, 2] * 4
+    out = bev.rescale_to_next(relin)
+    whole = out.data.unshard()
+    for r, local in enumerate(out.data.shards):
+        limb = hem.mesh.coords(r)["limb"]
+        data = hem.mesh.coords(r)["data"]
+        assert local.shape[2] == (2, 1)[limb]
+        want = torch.tensor_split(torch.tensor_split(whole, 4, dim=0)[data], 2, dim=2)[limb]
+        assert torch.equal(local, want)
+
+
+@pytest.mark.parametrize("mesh", [None, *MESHES])
+def test_batched_add_sub_negate_square_match_jax(state, mesh):
+    hem = None if mesh is None else make_mesh(8, devices=CPU8, **MESHES[mesh])
+    bev = BatchEvaluator(state["ctx"], hem)
+    b1, b2 = (bev.shard(b) for b in _batches(state))
+    for name, got in (("add", bev.add(b1, b2)), ("sub", bev.sub(b1, b2)), ("negate", bev.negate(b1)),
+                      ("square", bev.square(b1))):
+        np.testing.assert_array_equal(u64_to_numpy(got.unshard().data), state["jax"][name], err_msg=name)
+
+
+def test_evaluator_on_a_mesh_matches_the_evaluator_without(state):
+    ctx = state["ctx"]
+    hem = make_mesh(8, limb_parallel=2, devices=CPU8)
+    ev, evm = Evaluator(ctx), Evaluator(ctx, mesh=hem)
+    rk_sharded = evm.shard_keys(state["rk"])
+    assert rk_sharded.key(2)["c0"].spec == hem.key_spec()
+    for i in range(2):
+        a = ciphertext_from_numpy(state["d1"][i], ctx.first_parms_id, True, SCALE, "cpu")
+        b = ciphertext_from_numpy(state["d2"][i], ctx.first_parms_id, True, SCALE, "cpu")
+        want = ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), state["rk"]))
+        sa, sb = evm.shard(a), evm.shard(b)
+        assert sa.data.spec == hem.ct_spec()
+        for keys in (rk_sharded, state["rk"]):    # sharded keys, and keys the evaluator shards itself
+            got = evm.rescale_to_next(evm.relinearize(evm.multiply(sa, sb), keys))
+            assert torch.equal(got.data.unshard(), want.data)
+            assert got.scale == want.scale and got.parms_id == want.parms_id
+    assert Evaluator(ctx).shard(a) is a       # no mesh: placement is a no-op
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_contraction_matches_exact_integers(state, mesh):
+    """The contraction of ``tests/test_shard_ops.py`` as relinearize runs it:
+    each limb rank contracts its own decomposition rows (kernel B's plain
+    version, row offset) and the limb group gathers and adds the partial
+    sums mod q.  Every rank's sum equals the one-device contraction of its
+    requests, and the gather-add equals exact integer sums."""
+    ctx = state["ctx"]
+    cd = ctx.first_context_data()
+    ev = Evaluator(ctx)
+    plan = ev._plan(cd)
+    hem = make_mesh(8, devices=CPU8, **MESHES[mesh])
+    bev = BatchEvaluator(ctx, hem)
+    prod = bev.multiply(*(bev.shard(b) for b in _batches(state))).data
+    totals = sharded.contract(ev._plan, cd, prod, 2, shard_kswitch_key(hem, state["rk"].key(2)))
+    kc0, kc1 = state["rk"].key(2)["c0"], state["rk"].key(2)["c1"]
+    want = key_switch_contract(plan, prod.unshard()[:, 2], kc0[:plan.D], kc1[:plan.D], 0, plan.D)
+    for r, total in enumerate(totals):        # (B / data ranks, 2, Rn, n) on every rank
+        lo, hi = prod.block(r, 0)
+        assert torch.equal(total, want[lo:hi])
+
+    rng = np.random.default_rng(4)
+    sel = [int(q) for q in u64_to_numpy(plan.sel_tables.q).ravel()]
+    partials = [_residues(rng, sel, ()) for _ in range(hem.limb_size)]      # (R, n) each, below q
+    exact = np.array([[sum(int(p[i, c]) for p in partials) % q for c in range(N)] for i, q in enumerate(sel)],
+                     dtype=np.uint64)
+    summed = gather_add_mod([u64_from_numpy(p, "cpu") for p in partials], [plan.sel_tables.q] * len(partials))
+    for local in summed:                      # every rank of the group holds the whole sum
+        np.testing.assert_array_equal(u64_to_numpy(local), exact)
+
+
+def test_make_mesh_places_ranks_only_where_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="cards"):
+        make_mesh(8, limb_parallel=2)
+    with pytest.raises(ValueError):
+        make_mesh(8, devices=["cpu"] * 4)
+    with pytest.raises(ValueError):
+        make_mesh(6, limb_parallel=4, devices=["cpu"] * 6)
+    hem = make_mesh(8, limb_parallel=2, devices=CPU8)
+    assert (hem.batch_size, hem.limb_size, hem.host_size) == (4, 2, 1)
+    assert hem.mesh.shape == {"data": 4, "limb": 2}
+    hem3 = make_mesh(8, limb_parallel=2, hosts=2, replicate_keys=True, devices=CPU8)
+    assert hem3.mesh.shape == {"host": 2, "data": 2, "limb": 2}
+    assert (hem3.batch_size, hem3.limb_size, hem3.host_size) == (4, 2, 2)
+    assert hem3.ct_batch_spec() == PartitionSpec(("host", "data"), None, "limb", None)
+    assert hem3.key_spec() == PartitionSpec() and hem.key_spec() == PartitionSpec("limb", None, None)
+    assert all(d == torch.device("cpu") for d in hem.mesh.devices.ravel())
+
+
+def test_shard_and_unshard_round_trip_uneven_splits():
+    mesh = make_mesh(8, limb_parallel=2, hosts=2, devices=CPU8).mesh
+    x = torch.arange(5 * 3 * 7 * 4).reshape(5, 3, 7, 4)
+    st = shard(mesh, x, PartitionSpec(("host", "data"), None, "limb"))
+    for r, local in enumerate(st.shards):
+        c = mesh.coords(r)
+        want = torch.tensor_split(torch.tensor_split(x, 4, dim=0)[2 * c["host"] + c["data"]], 2, dim=2)[c["limb"]]
+        assert torch.equal(local, want)
+    assert torch.equal(st.unshard(), x)
+    assert split_bounds(3, 2) == [(0, 2), (2, 3)] and split_bounds(1, 2) == [(0, 1), (1, 1)]
+
+
+def test_collectives_follow_lax_layouts():
+    rng = np.random.default_rng(0)
+    P_, k, r, c = 4, 2, 3, 5
+    xs = [torch.from_numpy(rng.integers(0, 1 << 40, (k, P_, r, c))) for _ in range(P_)]
+    out = C.all_to_all(xs, 1, 2)                          # lax.all_to_all(split 1, concat 2, tiled=False)
+    for j in range(P_):
+        assert out[j].shape == (k, r, P_, c)
+        for m in range(P_):
+            assert torch.equal(out[j][:, :, m], xs[m][:, j])
+    gathered = C.all_gather(xs)
+    assert all(torch.equal(g, torch.stack(xs)) for g in gathered)
+    assert all(torch.equal(b, xs[2]) for b in C.broadcast(xs, 2))
+    pieces = [torch.arange(0, 3), torch.arange(3, 4), torch.arange(4, 8)]
+    ranges = [(0, 3), (3, 4), (4, 8)]
+    assert torch.equal(C.gather_range(pieces, ranges, 2, 6, 0, "cpu"), torch.arange(2, 6))
+    assert C.gather_range(pieces, ranges, 4, 7, 0, "cpu").data_ptr() == pieces[2][0:].data_ptr()
+    with pytest.raises(ValueError):
+        C.gather_range(pieces[:1], ranges[:1], 2, 6, 0, "cpu")
+
+
+def test_unported_batch_methods_name_their_roadmap_item(state):
+    bev = BatchEvaluator(state["ctx"])
+    b1, _ = _batches(state)
+    for method in ("mod_switch_to_next", "apply_galois", "rotate_vector", "multiply_plain", "add_plain",
+                   "transform_to_ntt", "transform_from_ntt", "mod_reduce_to_next", "multiply_many"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(bev, method)(b1)
+    bfv = P.EncryptionParameters(P.SchemeType.BFV)
+    bfv.set_poly_modulus_degree(N)
+    bfv.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    bfv.set_plain_modulus(P.Modulus(257))
+    bctx = P.SealContext(bfv, True, P.SecurityLevel.NONE, device="cpu")
+    data = torch.zeros((2, 2, len(BITS) - 1, N), dtype=torch.int64)
+    batch = CiphertextBatch(data, bctx.first_parms_id, False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchEvaluator(bctx).multiply(batch, batch)
