@@ -9,11 +9,14 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
 1. setup: the card's name and power limit, torch and CUDA versions, the
    kernels built from ``seal_tpu_torch/csrc`` (seconds, ptxas registers);
 2. kernel A (negacyclic NTT) against its plain PyTorch version on the card,
-   bit-exact, at every shape and modulus set of the main path plus one
-   N=16384 shape, with the kernel's and the plain version's times;
+   bit-exact, at every shape and modulus set of the main path, the same
+   calls batched over phase 8a's 8 requests, one N=16384 shape, and the six
+   transforms of one request at N=32768 (one launch each), with the
+   kernel's time by CUDA events and by the profiler's device time, and the
+   plain version's;
 3. kernel B (fused key-switch contraction) against its plain version:
    D=4 with and without the diagonal, the next level's key trim, and D=66
-   at N=1024 (the Barrett guard every 64 summands);
+   at N=1024 (the Barrett guard every 64 summands), timed the same ways;
 4. the slice: Evaluator multiply -> relinearize -> rescale_to_next for 8
    requests at CKKS N=8192, bits [60, 40, 40, 40, 60], equal to the plain
    path on the card, the first request equal to the golden digest of the
@@ -22,8 +25,9 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
 5. the four-step stage kernel against its plain version, bit-exact, at
    every stage shape of one N=65536 request (512/128 and 128/512, with and
    without the twiddle) and at N=32768 (256/128) and N=131072 (512/256),
-   then whole transforms on the card against the butterflies, with the
-   kernel's and the plain version's times and the bound;
+   then whole four-step transforms on the card against the butterflies,
+   with the kernel's time (events and profiler device time), the plain
+   version's and the bound;
 6. the staged key switch at N=65536 (D=3, Rn=4: the decompose and the
    contraction in plain PyTorch, the NTT on the stage kernel) against the
    plain version on the card;
@@ -108,19 +112,37 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters):
-    """Device time of fn() per call, every kernel it launches summed, from a
-    profiler run of iters calls; None when the profiler sees no device."""
+def device_ms(fn, iters, launches=None, attempts=3):
+    """Device time of fn() per call from a profiler run of iters calls.
+    With ``launches`` (the kernels one call launches), the mean duration of
+    the launches the trace recorded times that count, so a launch missing
+    from the trace does not lower it; without, every recorded kernel summed
+    over iters.  A run that recorded no device time is repeated, up to
+    ``attempts`` runs; None if none did."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        return None
-    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            total_us = sum(e.time_range.elapsed_us() for e in events)
+            if launches is not None:
+                return total_us / len(events) * launches / 1e3
+            return total_us / iters / 1e3
+    return None
+
+
+def kernel_ms(fn, iters):
+    """(device ms, events ms) per call of fn(), which launches one kernel:
+    the profiler's device time (the card's work), else, where the profiler
+    recorded none, the events' time; and back-to-back calls timed by CUDA
+    events, which the host paces once its launch path outlasts the kernel."""
+    events = cuda_ms(fn, iters)
+    dev = device_ms(fn, min(iters, 50), launches=1)
+    return (events if dev is None else dev), events
 
 
 def bound_ms(nbytes, ops):
@@ -303,7 +325,13 @@ def multi_device_phase(dev, ctx, cts, rk, seq_outs, big_t, gen):
           f"trip gives the input back; round trip: {turn_launches} corner-turn and {dist_stages} stage launches")
     print(f"[distributed NTT] forward {dist_ms[0] * 1e3:.1f} us, inverse {dist_ms[1] * 1e3:.1f} us (split and join "
           f"included); single card: forward {one_ms[0] * 1e3:.1f} us, inverse {one_ms[1] * 1e3:.1f} us; "
-          f"the forward on shards alone {core_ms * 1e3:.1f} us")
+          f"the forward on shards alone {core_ms * 1e3:.1f} us (CUDA events around back-to-back calls)")
+    dist_dev = {"forward": device_ms(lambda: dist.forward(x), 5), "inverse": device_ms(lambda: dist.inverse(fwd), 5),
+           "forward on shards": device_ms(lambda: dist.forward_shards(cols), 5),
+           "single-card forward": device_ms(lambda: NTT.forward(x, big_t), 5),
+           "single-card inverse": device_ms(lambda: NTT.inverse(want, big_t), 5)}
+    print("[distributed NTT] device time per call (profiler, every kernel summed, copies included): "
+          + ", ".join(f"{name} {'not measured' if v is None else f'{v * 1e3:.1f} us'}" for name, v in dist_dev.items()))
 
     # (c) the corner-turn kernel
     P, r, c = 8, dist.rows, dist.cols
@@ -340,7 +368,7 @@ def multi_device_phase(dev, ctx, cts, rk, seq_outs, big_t, gen):
         # the profiler's kernel durations give the device time.
         paced = {"kernel": cuda_ms(lambda: corner_turn_cuda(srcs, dsts), 200),
                  "plain": cuda_ms(lambda: corner_turn_plain(srcs, ref_dsts), 200)}
-        ms = device_ms(lambda: corner_turn_cuda(srcs, dsts), 50)
+        ms = device_ms(lambda: corner_turn_cuda(srcs, dsts), 50, launches=1)
         plain_ms = device_ms(lambda: corner_turn_plain(srcs, ref_dsts), 50)
         # the library yardstick: every rank's tensor stacked on the card, one permute + copy_
         stacked = torch.stack([s.contiguous() if label == "forward" else s.transpose(1, 2).contiguous()
@@ -350,7 +378,7 @@ def multi_device_phase(dev, ctx, cts, rk, seq_outs, big_t, gen):
         whole.copy_(stacked.permute(*perm))
         check(all(torch.equal(whole[j], bufs[j]) for j in range(P)), f"permute + copy_ differs ({label})")
         paced["permute+copy_"] = cuda_ms(lambda: whole.copy_(stacked.permute(*perm)), 200)
-        lib_ms = device_ms(lambda: whole.copy_(stacked.permute(*perm)), 50)
+        lib_ms = device_ms(lambda: whole.copy_(stacked.permute(*perm)), 50, launches=1)
         if ms is None or plain_ms is None or lib_ms is None:
             print("[corner turn] the profiler recorded no device time: the times below are host-paced")
             ms, plain_ms, lib_ms = paced["kernel"], paced["plain"], paced["permute+copy_"]
@@ -454,12 +482,30 @@ def main():
         ("rescale: iNTT mod q_last, one poly", slice_limbs(first_t, k - 1, k), (1, 1 << log_n), True, False),
         ("rescale: NTT, one poly", slice_limbs(first_t, 0, k - 1), (k - 1, 1 << log_n), False, False),
     ]
+    # phase 8a's batch of 8 requests: the same calls with a leading batch axis
+    cases += [(f"batch of 8, {label}", t, (8, *shape), inverse, False)
+              for label, t, shape, inverse, on_path in cases[:5]]
     mods16 = CoeffModulus.create(16384, list(golden.GOLDEN_BITS))
     t16 = build_limb_tables(14, mods16, device="cuda")
     cases.append(("N=16384 NTT", t16, (2, 5, 16384), False, False))
     cases.append(("N=16384 iNTT", t16, (2, 5, 16384), True, False))
+    # N=32768, one launch a transform since kernel A spreads a row over a
+    # cluster: the calls of one request of phase 7's chain at this size
+    ctx32 = context(32768, list(golden.LARGE_BITS))
+    t32_first, t32_key = ctx32.first_context_data().limb_tables(), ctx32.key_context_data().limb_tables()
+    k32 = t32_first.q.shape[0]
+    cases += [
+        ("N=32768 key switch: iNTT of the target", t32_first, (k32, 32768), True, False),
+        ("N=32768 key switch: NTT of the decomposition", t32_key, (k32, k32 + 1, 32768), False, False),
+        ("N=32768 key switch: iNTT mod the special prime", slice_limbs(t32_key, k32, k32 + 1), (2, 1, 32768),
+         True, False),
+        ("N=32768 key switch: tail NTT", slice_limbs(t32_key, 0, k32), (2, k32, 32768), False, False),
+        ("N=32768 rescale: iNTT mod q_last", slice_limbs(t32_first, k32 - 1, k32), (2, 1, 32768), True, False),
+        ("N=32768 rescale: NTT", slice_limbs(t32_first, 0, k32 - 1), (2, k32 - 1, 32768), False, False),
+    ]
 
-    ntt_totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    ntt_totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    n32_device_ms = 0.0
     for label, t, shape, inverse, on_path in cases:
         x = lazy_input(t, shape, 2 if inverse else 4, gen)
         plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
@@ -469,18 +515,25 @@ def main():
         err = int((got - want).abs().max())
         check(err == 0, f"kernel A disagrees with its plain version on {label} {shape}: max abs err {err}")
         max_err["ntt"] = max(max_err["ntt"], err)
-        ms = cuda_ms(lambda: ntt_cuda(x, t, inverse), 200)
+        ms, events_ms = kernel_ms(lambda: ntt_cuda(x, t, inverse), 200)
         plain_ms = cuda_ms(plain_fn, 10, warmup=1)
         rows = x.numel() // shape[-1]
         nbytes, ops = ntt_work(rows, shape[-2], t.log_n)
         b, by = bound_ms(nbytes, ops)
         print(f"[kernel A] {label} {'inverse' if inverse else 'forward'} {tuple(shape)}: bit-exact; "
-              f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by})")
+              f"kernel {ms * 1e3:.2f} us device time, {events_ms * 1e3:.2f} us back to back by events; "
+              f"plain {plain_ms * 1e3:.1f} us by events; bound {b * 1e3:.3f} us ({by})")
+        if t.log_n == 15:
+            n32_device_ms += ms
         if on_path:
             ntt_totals["ms"] += ms
+            ntt_totals["events_ms"] += events_ms
             ntt_totals["plain_ms"] += plain_ms
             ntt_totals["bytes"] += nbytes
             ntt_totals["ops"] += ops
+    print(f"[kernel A] per N={1 << log_n} request (5 calls): device time {ntt_totals['ms'] * 1e3:.2f} us, "
+          f"back to back by events {ntt_totals['events_ms'] * 1e3:.2f} us; per N=32768 request's 6 transforms "
+          f"(one launch each): device time {n32_device_ms * 1e3:.2f} us")
 
     # ---- phase 3: kernel B vs plain --------------------------------------
     sk_main = {}
@@ -503,12 +556,13 @@ def main():
         err = int((got - want).abs().max())
         check(err == 0, f"kernel B disagrees with its plain version on {label}: max abs err {err}")
         max_err["switch_key"] = max(max_err["switch_key"], err)
-        ms = cuda_ms(lambda: switch_key_contract_cuda(t_c, t_n_arg, key, sel, plan.need_reduce), 100)
+        ms, events_ms = kernel_ms(lambda: switch_key_contract_cuda(t_c, t_n_arg, key, sel, plan.need_reduce), 100)
         plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce), 5, warmup=1)
         nbytes, ops = switch_key_work(D, key_rows, Rn, level_cd.log_n, diag)
         b, by = bound_ms(nbytes, ops)
         print(f"[kernel B] {label} (D={D}, key rows {key_rows}, Rn={Rn}, N={n}, diagonal {diag}): bit-exact; "
-              f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by})")
+              f"kernel {ms * 1e3:.2f} us device time, {events_ms * 1e3:.2f} us back to back by events; "
+              f"plain {plain_ms * 1e3:.1f} us by events; bound {b * 1e3:.3f} us ({by})")
         if main:
             sk_main.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
 
@@ -635,49 +689,52 @@ def main():
         transforms.append((f"N={1 << log_n} NTT", tt, (2, len(mods), 1 << log_n), False, False))
         transforms.append((f"N={1 << log_n} iNTT", tt, (2, len(mods), 1 << log_n), True, False))
 
-    stage_totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "madds": 0, "b_bytes": 0}
+    stage_totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "madds": 0, "b_bytes": 0}
     for label, t, shape, inverse, on_path in transforms:
         ft = four_step_tables_for(t)
         x = lazy_input(t, shape, 2 if inverse else 4, gen)
         specs = FS.inverse_specs(ft) if inverse else FS.forward_specs(ft)
-        mats = (ft.finv, ft.winv) if inverse else (ft.w, ft.f)
+        names = ("finv", "winv") if inverse else ("w", "f")
         tws = ((ft.twi_op, ft.twi_qt) if inverse else (ft.tw_op, ft.tw_qt), None)
         rows = x.numel() // shape[-1]
         h = x
-        for which, (spec, b, tw) in enumerate(zip(specs, mats, tws)):
-            got = stage_cuda(h, b, ft, spec, tw)
-            want = FS.stage_plain(h, b, ft, spec, tw)
+        for which, (spec, name, tw) in enumerate(zip(specs, names, tws)):
+            got = stage_cuda(h, name, ft, spec, tw)
+            want = FS.stage_plain(h, name, ft, spec, tw)
             torch.cuda.synchronize()
             err = int((got - want).abs().max())
             check(err == 0, f"the stage kernel disagrees with its plain version on {label}, stage {which}: "
                             f"max abs err {err}")
             max_err["four_step_stage"] = max(max_err["four_step_stage"], err)
-            ms = cuda_ms(lambda: stage_cuda(h, b, ft, spec, tw), 20)
-            plain_ms = cuda_ms(lambda: FS.stage_plain(h, b, ft, spec, tw), 2, warmup=1)
+            ms, events_ms = kernel_ms(lambda: stage_cuda(h, name, ft, spec, tw), 50)
+            plain_ms = cuda_ms(lambda: FS.stage_plain(h, name, ft, spec, tw), 2, warmup=1)
             nbytes, ops = stage_work(rows, t.q.shape[0], spec, tw is not None)
             bnd, by = bound_ms(nbytes, ops)
             madds = rows * spec.M * spec.K * spec.ncols
             b_bytes = 8 * t.q.shape[0] * spec.M * spec.K
             print(f"[stage] {label} {tuple(shape)} stage {which} ({spec.M}x{spec.K}, {spec.ncols} columns, "
-                  f"twiddle {tw is not None}): bit-exact; kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, "
+                  f"twiddle {tw is not None}): bit-exact; kernel {ms * 1e3:.2f} us device time, {events_ms * 1e3:.2f} "
+                  f"us back to back by events; plain {plain_ms * 1e3:.1f} us by events; "
                   f"bound {bnd * 1e3:.3f} us ({by}; for information, the dense product does "
                   f"{madds / 1e6:.1f} M multiply-adds and reads {b_bytes / 1e6:.2f} MB of matrix)")
             if on_path:
                 stage_totals["ms"] += ms
+                stage_totals["events_ms"] += events_ms
                 stage_totals["plain_ms"] += plain_ms
                 stage_totals["bytes"] += nbytes
                 stage_totals["ops"] += ops
                 stage_totals["madds"] += madds
                 stage_totals["b_bytes"] += b_bytes
             h = got
-        transform = NTT.inverse if inverse else NTT.forward
+        four_step = FS.four_step_inverse if inverse else FS.four_step_forward
+        transform = lambda x, t: four_step(x, ft, stage=stage_cuda)          # N=32768 too: the stage kernel's split
         butterflies = ntt_inverse if inverse else ntt_forward
         full = transform(x, t)
         torch.cuda.synchronize()
         check(torch.equal(full, butterflies(x, t)), f"the four-step transform differs from the butterflies on {label}")
         fms = cuda_ms(lambda: transform(x, t), 10)
         bms = cuda_ms(lambda: butterflies(x, t), 3, warmup=1)
-        print(f"[stage] {label}: the whole transform (2 launches) equals the butterflies; {fms * 1e3:.1f} us, "
+        print(f"[stage] {label}: the whole four-step transform (2 launches) equals the butterflies; {fms * 1e3:.1f} us, "
               f"butterflies in plain PyTorch {bms * 1e3:.1f} us")
 
     # ---- phase 6: the staged key switch at N=65536 -----------------------
@@ -800,8 +857,9 @@ def main():
         for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
             print(f"[round trip profile]   {v / 1e3:9.3f} ms  {name[:100]}")
     b_stage, by_stage = bound_ms(stage_totals["bytes"], stage_totals["ops"])
-    print(f"[round trip] the stage kernel per request: {stage_totals['ms'] * 1e3:.1f} us over 12 calls, bound "
-          f"{b_stage * 1e3:.3f} us ({by_stage}), plain {stage_totals['plain_ms'] * 1e3:.1f} us; for "
+    print(f"[round trip] the stage kernel per request: {stage_totals['ms'] * 1e3:.1f} us device time over 12 calls, "
+          f"{stage_totals['events_ms'] * 1e3:.1f} us back to back by events, bound "
+          f"{b_stage * 1e3:.3f} us ({by_stage}), plain {stage_totals['plain_ms'] * 1e3:.1f} us by events; for "
           f"information, the dense product's {stage_totals['madds'] / 1e9:.3f} G multiply-adds and "
           f"{stage_totals['b_bytes'] / 1e6:.2f} MB of matrix reads")
 
@@ -827,7 +885,7 @@ def main():
     ]}
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s; kernel A's ms, plain_ms and bound_ms "
           f"sum the five calls of one N=8192 request, the stage kernel's the twelve of one N=65536 request; its "
-          f"launches count the whole N=65536 round trip, keygen to decode")
+          f"launches count the whole N=65536 round trip, keygen to decode; each kernel's ms is the profiler's device time, each plain_ms CUDA events around calls of the plain version (the corner turn's: device time)")
     print("[done] library_ms is null for the first three kernels: no PyTorch call computes a negacyclic NTT mod q, "
           "the key-switch contraction or a modular matrix product (the CUDA int64 matmul is missing and does no "
           "modular reduction); the corner turn's numbers sum its forward and inverse turn of one N=65536 round "

@@ -1,6 +1,8 @@
 // Negacyclic NTT stage loops on one row held in shared memory.
 //
-// Shared by kernel A (ntt.cu) and kernel B (switch_key.cu).  The arithmetic
+// The row functions serve kernel B (switch_key.cu); kernel A and the stage
+// kernel run the passes of ntt_passes.cuh, built on the Shoup product and
+// the guard defined here.  The arithmetic
 // is that of the plain PyTorch version (seal_tpu_torch/ops/ntt.py): Harvey
 // butterflies with Shoup twiddles, lazy ranges [0, 4q) forward and [0, 2q)
 // inverse, the inverse's last stage fusing 1/n.  Values are u64 below 2^62,

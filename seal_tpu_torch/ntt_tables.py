@@ -20,7 +20,9 @@ the same bits, which is what CUDA code reads as ``uint64_t``.
 the same factorization of the length-n transform into an n1-point matrix
 stage, a twiddle and an n2-point matrix stage, with the same matrices, but
 stored as u64 values (the card multiplies 64-bit integers natively) rather
-than as int8 digit planes.
+than as int8 digit planes.  Beside each matrix it keeps the Shoup root table
+of the butterflies that compute the same sub-transform, which the card's
+stage kernel runs.
 """
 
 from __future__ import annotations
@@ -186,6 +188,19 @@ class FourStepTables(NamedTuple):
     ``inv_scale`` folded in).  Matrices are (k, M, K) int64 holding u64
     values below q; twiddles are (k, n) in the (t1, c) layout, with Shoup
     quotients; per-limb constants are (k, 1).
+
+    Each matrix is a butterfly transform, and ``<name>_roots`` (k, 2, M)
+    holds its Shoup root table: operands in ``[:, 0]``, quotients in
+    ``[:, 1]``.  W is the n1-point negacyclic NTT with root eta = psi^n2 and
+    F the n2-point cyclic NTT with root zeta = psi^(2 n1), both in the
+    bit-reversed output order of Cooley-Tukey butterflies on natural input:
+    stage s (2^s blocks) reads slots [2^s, 2^(s+1)), as kernel A's forward
+    table.  Winv and Finv are their Gentleman-Sande inverses, bit-reversed
+    input to natural output: stage s (M / 2^(s+1) blocks) reads slots from
+    1 + M - M / 2^s, each the inverse of the forward root of the same block;
+    slot 0, which no stage reads, holds the scale (1/n1 times
+    ``inv_scale``, or 1/n2), and the last stage's one slot, M - 1, holds its
+    root times that scale, as kernel A's last inverse stage fuses 1/n.
     """
 
     w: torch.Tensor          # (k, n1, n1): W[t1, r]
@@ -199,6 +214,10 @@ class FourStepTables(NamedTuple):
     q: torch.Tensor          # (k, 1)
     ratio_lo: torch.Tensor
     ratio_hi: torch.Tensor
+    w_roots: torch.Tensor    # (k, 2, n1)
+    f_roots: torch.Tensor    # (k, 2, n2)
+    winv_roots: torch.Tensor  # (k, 2, n1)
+    finv_roots: torch.Tensor  # (k, 2, n2)
     n1: int = 0
     n2: int = 0
     log_n: int = 0
@@ -206,7 +225,7 @@ class FourStepTables(NamedTuple):
     inv_scale: tuple = ()
 
 
-_FOUR_STEP_ARRAY_FIELDS = 11  # fields before the metadata tail
+_FOUR_STEP_ARRAY_FIELDS = 15  # fields before the metadata tail
 
 
 def default_split(log_n: int) -> int:
@@ -220,6 +239,46 @@ def default_split(log_n: int) -> int:
 
 
 _FOUR_STEP_HOST_CACHE = {}
+
+
+def _forward_roots(log_m: int, root: int, q: int, negacyclic: bool) -> List[int]:
+    """Slot 2^s + b: the root of block b at stage s of Cooley-Tukey
+    butterflies, natural input, bit-reversed output.  Negacyclic (``root`` a
+    primitive 2M-th root): root^brv(2^s + b), kernel A's layout.  Cyclic
+    (``root`` a primitive M-th root): root^(brv_s(b) M / 2^(s+1)), the same
+    network without the negacyclic factor root^(M / 2^(s+1))."""
+    m_size = 1 << log_m
+    out = [1] * m_size
+    for s in range(log_m):
+        for b in range(1 << s):
+            if negacyclic:
+                e = numth.reverse_bits((1 << s) + b, log_m)
+            else:
+                e = numth.reverse_bits(b, s) * (m_size >> (s + 1))
+            out[(1 << s) + b] = pow(root, e, q)
+    return out
+
+
+def _inverse_roots(fwd: List[int], log_m: int, scale: int, q: int) -> List[int]:
+    """The Gentleman-Sande table of the transform whose forward table is
+    ``fwd``: stage s (M / 2^(s+1) blocks) reads slots from 1 + M - M / 2^s,
+    each the inverse of the forward root of the same block; slot 0 holds
+    ``scale`` and the last stage's slot M - 1 its root times ``scale``."""
+    m_size = 1 << log_m
+    out = [0] * m_size
+    out[0] = scale
+    for s in range(log_m):
+        blocks = m_size >> (s + 1)
+        offset = 1 + m_size - (m_size >> s)
+        for b in range(blocks):
+            out[offset + b] = numth.invert_mod(fwd[blocks + b], q)
+    if log_m:
+        out[m_size - 1] = out[m_size - 1] * scale % q
+    return out
+
+
+def _shoup_pair(values: List[int], q: int) -> List[List[int]]:
+    return [values, [_shoup(v, q) for v in values]]
 
 
 def _four_step_host(log_n: int, q: int, n2: int, inv_scale: int):
@@ -261,7 +320,12 @@ def _four_step_host(log_n: int, q: int, n2: int, inv_scale: int):
         Finv_t.append(powers(numth.invert_mod(z, q), inv_n2, n2))  # row t2 of Finv^T
     Winv = [list(col) for col in zip(*Winv_t)]
     Finv = [list(col) for col in zip(*Finv_t)]
-    hit = (W, F, Winv, Finv, T, [_shoup(a, q) for a in T], Ti, [_shoup(a, q) for a in Ti])
+    w_fwd = _forward_roots(ln1, eta, q, negacyclic=True)
+    f_fwd = _forward_roots(ln2, zeta, q, negacyclic=False)
+    roots = (_shoup_pair(w_fwd, q), _shoup_pair(f_fwd, q),
+             _shoup_pair(_inverse_roots(w_fwd, ln1, inv_n1, q), q),
+             _shoup_pair(_inverse_roots(f_fwd, ln2, inv_n2, q), q))
+    hit = (W, F, Winv, Finv, T, [_shoup(a, q) for a in T], Ti, [_shoup(a, q) for a in Ti], roots)
     _FOUR_STEP_HOST_CACHE[key] = hit
     return hit
 
@@ -291,11 +355,13 @@ def build_four_step_tables(
     per_limb = [_four_step_host(log_n, m.value, n2, int(s)) for m, s in zip(moduli, inv_scale)]
     fields = [u64_tensor([limb[i] for limb in per_limb], device) for i in range(8)]
     ratio = [m.const_ratio for m in moduli]
+    roots = [u64_tensor([limb[8][i] for limb in per_limb], device) for i in range(4)]
     return FourStepTables(
         *fields,
         q=u64_tensor([[m.value] for m in moduli], device),
         ratio_lo=u64_tensor([[r & _MASK64] for r in ratio], device),
         ratio_hi=u64_tensor([[r >> 64] for r in ratio], device),
+        w_roots=roots[0], f_roots=roots[1], winv_roots=roots[2], finv_roots=roots[3],
         n1=n1, n2=n2, log_n=log_n,
         moduli_values=tuple(m.value for m in moduli),
         inv_scale=tuple(int(s) for s in inv_scale),

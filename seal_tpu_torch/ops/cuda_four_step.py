@@ -2,7 +2,10 @@
 
 Replaces ``seal_tpu/ops/pallas_mxu_ntt.py:_stage_kernel``.  ``stage_cuda``
 has the contract of ``ops/four_step.py:stage_plain``, its plain version, and
-takes only CUDA tensors.  ``stage_cuda.launches`` counts the launches.
+takes only CUDA tensors: where the plain version multiplies by the named
+transform's matrix, the kernel runs its butterflies over the root table
+``FourStepTables.<name>_roots``.  ``stage_cuda.launches`` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from ..ntt_tables import FourStepTables
 from . import cuda_build
-from .four_step import MAX_Q_BITS, StageSpec
+from .four_step import INVERSE_TRANSFORMS, MAX_Q_BITS, StageSpec, check_transform
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -24,7 +27,7 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = cuda_build.load("four_step")
-    lib.seal_four_step_stage.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+    lib.seal_four_step_stage.argtypes = [_P] * 6 + [_I] * 10 + [_P]
     lib.seal_four_step_stage.restype = _I
     return lib
 
@@ -35,39 +38,44 @@ def _compact(strides, shape) -> bool:
     return (s0, s1) == (d1, 1) or (s0, s1) == (1, d0)
 
 
-def _check_inputs(x, b, ft: FourStepTables, spec: StageSpec, twiddle):
+def _power_of_two(v: int) -> bool:
+    return v >= 1 and v & (v - 1) == 0
+
+
+def _check_inputs(x, name, ft: FourStepTables, spec: StageSpec, twiddle):
     if not x.is_cuda:
         raise ValueError("stage_cuda takes CUDA tensors")
     if x.dim() < 2:
         raise ValueError("stage_cuda takes data of shape (..., k, n)")
     *_, k, n = x.shape
     M, K, ncols = spec.M, spec.K, spec.ncols
-    if k != ft.q.shape[0] or K * ncols != n or M * ncols != n:
+    check_transform(ft, name, M)
+    if k != ft.q.shape[0] or K != M or M * ncols != n:
         raise ValueError(f"data (..., {k}, {n}) does not match a ({M} x {K}) stage over {ncols} "
                          f"columns and {ft.q.shape[0]} limbs")
+    if not (M >= 2 and _power_of_two(M) and _power_of_two(ncols)):
+        raise ValueError(f"stage_cuda runs butterflies: M = {M} >= 2 and {ncols} columns must be powers of two")
     if not (_compact(spec.x_strides, (K, ncols)) and _compact(spec.out_strides, (M, ncols))):
         raise ValueError(f"strides {spec.x_strides}, {spec.out_strides} are not a row-major or "
                          f"transposed layout")
     if max(ft.moduli_values) >> MAX_Q_BITS:
         raise ValueError(f"stage_cuda needs moduli below 2^{MAX_Q_BITS}")
-    if tuple(b.shape) != (k, M, K):
-        raise ValueError(f"matrix must have shape ({k}, {M}, {K}), got {tuple(b.shape)}")
-    tensors = {"x": x, "b": b, "q": ft.q, "ratio_lo": ft.ratio_lo, "ratio_hi": ft.ratio_hi}
+    roots = getattr(ft, f"{name}_roots")
+    tensors = {"x": x, "roots": roots, "q": ft.q}
     if twiddle is not None:
         tensors.update(tw_op=twiddle[0], tw_qt=twiddle[1])
         if tuple(twiddle[0].shape) != (k, n) or tuple(twiddle[1].shape) != (k, n):
             raise ValueError(f"twiddles must have shape ({k}, {n})")
-    for name, a in tensors.items():
+    for tname, a in tensors.items():
         if a.device != x.device or a.dtype != torch.int64 or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int64 tensor on {x.device}")
-    if x.numel() // n > 65535:
-        raise ValueError("stage_cuda launches one grid slice per row: at most 65535 rows")
+            raise ValueError(f"{tname} must be a contiguous int64 tensor on {x.device}")
+    return roots
 
 
-def stage_cuda(x: torch.Tensor, b: torch.Tensor, ft: FourStepTables, spec: StageSpec,
+def stage_cuda(x: torch.Tensor, name: str, ft: FourStepTables, spec: StageSpec,
                twiddle: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """One stage on the card; one launch.  Input below 4q, output in [0, q)."""
-    _check_inputs(x, b, ft, spec, twiddle)
+    roots = _check_inputs(x, name, ft, spec, twiddle)
     lib = _lib()
     *_, k, n = x.shape
     rows = x.numel() // n
@@ -78,9 +86,9 @@ def stage_cuda(x: torch.Tensor, b: torch.Tensor, ft: FourStepTables, spec: Stage
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.seal_four_step_stage(
-            x.data_ptr(), b.data_ptr(), tw_op, tw_qt, ft.q.data_ptr(), ft.ratio_lo.data_ptr(),
-            ft.ratio_hi.data_ptr(), out.data_ptr(), rows, k, n, spec.M, spec.K, spec.ncols,
-            *spec.x_strides, *spec.out_strides, stream)
+            x.data_ptr(), roots.data_ptr(), tw_op, tw_qt, ft.q.data_ptr(), out.data_ptr(), rows, k, n,
+            spec.M, spec.ncols, int(name in INVERSE_TRANSFORMS), *spec.x_strides, *spec.out_strides,
+            stream)
         stage_cuda.launches += 1
     cuda_build.check(rc, "stage_cuda")
     return out

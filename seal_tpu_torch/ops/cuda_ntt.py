@@ -16,8 +16,12 @@ import torch
 from ..ntt_tables import LimbTables
 from . import cuda_build
 
-# A row lives in shared memory: 8n bytes must fit the 227 KB a block may use.
-MAX_LOG_N = 14
+# A row is spread over the shared memory of a cluster of (up to) 8 blocks:
+# 32 KB of data and 64 KB of roots a block at n = 32768.  Larger rows go to
+# the four-step stage kernel, as the JAX package sends n > 32768 past
+# _fused_kernel.  A chunk needs at least two elements: n >= 4.
+MIN_LOG_N = 2
+MAX_LOG_N = 15
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,8 +43,9 @@ def _check_inputs(x: torch.Tensor, t: LimbTables):
     *_, k, n = x.shape
     if t.log_n < 1 or n != 1 << t.log_n or k != t.q.shape[0]:
         raise ValueError(f"data (..., {k}, {n}) does not match tables over {t.q.shape[0]} limbs at n={1 << t.log_n}")
-    if t.log_n > MAX_LOG_N:
-        raise ValueError(f"ntt_cuda keeps a row in shared memory and supports n <= {1 << MAX_LOG_N}, got n={n}")
+    if not MIN_LOG_N <= t.log_n <= MAX_LOG_N:
+        raise ValueError(f"ntt_cuda spreads a row over a cluster's shared memory and supports "
+                         f"{1 << MIN_LOG_N} <= n <= {1 << MAX_LOG_N}, got n={n}")
     if not x.is_cuda:
         raise ValueError("ntt_cuda takes a CUDA tensor")
     if x.dtype != torch.int64 or not x.is_contiguous():

@@ -37,8 +37,10 @@ import torch
 from ..ntt_tables import LimbTables
 from . import cuda_build
 from . import u64 as U
-from .cuda_ntt import MAX_LOG_N
 from .ntt import forward, ntt_forward, use_kernels
+
+# Kernel B keeps a row in one block's shared memory: n <= 16384.
+MAX_LOG_N = 14
 
 _ACC_WINDOW = 64  # lazy u128 summands between Barrett guards (defines.h:66)
 _MIN_LOG_N = 3    # the kernel gives each thread 8 coefficients

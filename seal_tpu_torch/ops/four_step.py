@@ -8,9 +8,11 @@ Port of ``seal_tpu/ops/mxu_ntt.py`` and of the staged branch of
     out[m, t] = (sum_kappa B[m, kappa] * x[kappa, t]) mod q   (then * T[m, t])
 
 with B a (M, K) constant matrix of the limb and T an optional Shoup twiddle:
-what ``_stage_kernel`` computes.  The JAX package reaches exactness through
-int8 digit planes; here the products are 64x64 -> 128-bit and summed
-exactly, which gives the same reduced residues.
+what ``_stage_kernel`` computes.  A stage names its matrix: ``"w"``,
+``"f"``, ``"finv"`` or ``"winv"`` of :class:`FourStepTables`, each a
+butterfly transform whose root table the tables also keep.  The JAX package
+reaches exactness through int8 digit planes; here the products are 64x64 ->
+128-bit and summed exactly, which gives the same reduced residues.
 
 A stage reads its input and writes its output through a :class:`StageSpec`:
 the element (kappa, t) of a row sits at ``kappa * x_strides[0] + t *
@@ -43,6 +45,18 @@ MAX_CHUNK = 64
 MAX_Q_BITS = 61
 # Elements of one chunk's product tensor, bounding the plain version's memory.
 _PLAIN_CHUNK_ELEMENTS = 1 << 22
+TRANSFORMS = ("w", "f", "finv", "winv")
+INVERSE_TRANSFORMS = ("finv", "winv")
+
+
+def check_transform(ft: FourStepTables, name: str, M: int) -> None:
+    """Raise unless ``name`` is one of :data:`TRANSFORMS` and M-point: W
+    and Winv are n1-point, F and Finv n2-point."""
+    if name not in TRANSFORMS:
+        raise ValueError(f"a stage's transform is one of {TRANSFORMS}, got {name!r}")
+    size = ft.n1 if name in ("w", "winv") else ft.n2
+    if size != M:
+        raise ValueError(f"transform {name!r} is {size}-point, the stage is {M}-point")
 
 
 class StageSpec(NamedTuple):
@@ -76,16 +90,19 @@ def _strided(flat: torch.Tensor, k: int, n: int, rows: int, strides, shape) -> t
     return flat.as_strided((rows // k, k, *shape), (k * n, n, *strides))
 
 
-def stage_plain(x: torch.Tensor, b: torch.Tensor, ft: FourStepTables, spec: StageSpec,
+def stage_plain(x: torch.Tensor, name: str, ft: FourStepTables, spec: StageSpec,
                 twiddle: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """One stage in plain PyTorch on the tensors' device.
+    """One stage in plain PyTorch on the tensors' device: the dense product
+    with the named transform's (k, M, K) matrix.
 
-    ``x``: int64 (..., k, n), values below 4q; ``b``: (k, M, K) below q;
-    ``twiddle``: (op, qt), each (k, n), or None.  Returns (..., k, n) in
-    [0, q).
+    ``x``: int64 (..., k, n), values below 4q; ``name``: one of
+    :data:`TRANSFORMS`; ``twiddle``: (op, qt), each (k, n), or None.
+    Returns (..., k, n) in [0, q).
     """
     *lead, k, n = x.shape
     M, K, ncols = spec.M, spec.K, spec.ncols
+    check_transform(ft, name, M)
+    b = getattr(ft, name)
     rows = x.numel() // n
     q = ft.q[:, :, None]                                            # (k, 1, 1)
     two_q = 2 * q
@@ -122,14 +139,14 @@ def four_step_forward(x: torch.Tensor, ft: FourStepTables, stage=stage_plain) ->
     """Forward negacyclic NTT of (..., k, n) data below 4q; output in [0, q)
     in the butterflies' bit-reversed order.  Two stage calls."""
     spec_a, spec_b = forward_specs(ft)
-    h = stage(x, ft.w, ft, spec_a, (ft.tw_op, ft.tw_qt))
-    return stage(h, ft.f, ft, spec_b)
+    h = stage(x, "w", ft, spec_a, (ft.tw_op, ft.tw_qt))
+    return stage(h, "f", ft, spec_b)
 
 
 def four_step_inverse(x: torch.Tensor, ft: FourStepTables, stage=stage_plain) -> torch.Tensor:
     """Inverse negacyclic NTT of (..., k, n) data below 2q, 1/n (and the
     tables' inv_scale) folded in; output in [0, q).  Two stage calls."""
     spec_a, spec_b = inverse_specs(ft)
-    h = stage(x, ft.finv, ft, spec_a, (ft.twi_op, ft.twi_qt))
-    return stage(h, ft.winv, ft, spec_b)
+    h = stage(x, "finv", ft, spec_a, (ft.twi_op, ft.twi_qt))
+    return stage(h, "winv", ft, spec_b)
 

@@ -11,8 +11,9 @@ through the inverse (``util/ntt.h:195-340``).
 ``forward`` and ``inverse`` are what the rest of the port calls (the
 dispatch of ``seal_tpu/ops/ntt.py:90-115,155-229``):
 
-* a tensor on the card at n <= 16384, where a row fits a block's shared
-  memory, goes to kernel A (``ops/cuda_ntt.py``);
+* a tensor on the card at n <= 32768, where a row fits the shared memory
+  of a cluster of blocks, goes to kernel A (``ops/cuda_ntt.py``), one
+  launch, as the JAX package sends n <= 32768 to ``_fused_kernel``;
 * a tensor on the card above that goes to the four-step transform
   (``ops/four_step.py``) on the stage kernel (``ops/cuda_four_step.py``),
   two launches per transform;

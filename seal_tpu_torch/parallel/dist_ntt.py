@@ -38,8 +38,8 @@ from .mesh import DeviceMesh
 from .remote_ntt import corner_turn, remote_corner_turn
 
 
-def _stage(x, b, ft, spec, twiddle=None):
-    return (stage_cuda if use_kernels(x) else stage_plain)(x, b, ft, spec, twiddle)
+def _stage(x, name, ft, spec, twiddle=None):
+    return (stage_cuda if use_kernels(x) else stage_plain)(x, name, ft, spec, twiddle)
 
 
 def _on(ft: FourStepTables, device: torch.device) -> FourStepTables:
@@ -93,22 +93,22 @@ class DistNTT:
     def forward_shards(self, cols: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Column shards (k, n1 * n2/P) below 4q -> row shards (k, n1/P * n2) in [0, q)."""
         k, P, r, c = self.ft.q.shape[0], self.P, self.rows, self.cols
-        h = [_stage(x, t.w, t, self.spec_cols, tw) for x, t, tw in zip(cols, self.tables, self.tw)]
+        h = [_stage(x, "w", t, self.spec_cols, tw) for x, t, tw in zip(cols, self.tables, self.tw)]
         # h's (k, n1, c) layout is (k, P, r, c): row block j goes to rank j,
         # whose received column blocks flatten, by sender, to its full rows.
         out = remote_corner_turn([a.view(k, P, r, c) for a in h])
-        return [_stage(a.view(k, r * P * c), t.f, t, self.spec_rows)
+        return [_stage(a.view(k, r * P * c), "f", t, self.spec_rows)
                 for a, t in zip(out, self.tables)]
 
     def inverse_shards(self, rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Row shards (k, n1/P * n2) below 2q -> column shards (k, n1 * n2/P) in [0, q)."""
         k, P, r, c = self.ft.q.shape[0], self.P, self.rows, self.cols
-        ht = [_stage(x, t.finv, t, self.spec_rows, twi) for x, t, twi in zip(rows, self.tables, self.twi)]
+        ht = [_stage(x, "finv", t, self.spec_rows, twi) for x, t, twi in zip(rows, self.tables, self.twi)]
         back = [torch.empty((k, P, r, c), dtype=torch.int64, device=d) for d in self.devices]
         # ht's (k, r, n2) layout is (k, r, P, c): column block j goes to rank
         # j, which stacks what it receives, by sender, into its full columns.
         corner_turn([a.view(k, r, P, c).transpose(1, 2) for a in ht], [b.transpose(1, 2) for b in back])
-        return [_stage(b.view(k, P * r * c), t.winv, t, self.spec_cols)
+        return [_stage(b.view(k, P * r * c), "winv", t, self.spec_cols)
                 for b, t in zip(back, self.tables)]
 
     # -- on whole tensors -------------------------------------------------

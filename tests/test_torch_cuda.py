@@ -51,14 +51,34 @@ def _uniform(shape, bound, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n", [4, 10, 13, 14])
+@pytest.mark.parametrize("log_n", [2, 3, 4, 5, 6, 10, 13, 14, 15])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_kernel_matches_plain(card, log_n, inverse):
-    mods = CoeffModulus.create(1 << log_n, [60, 50, 40])
+    """Clusters of 2 (n = 4, 8), 4 (16, 32) and 8 blocks (n >= 64)."""
+    mods = CoeffModulus.create(max(1 << log_n, 1024), [60, 50, 40])
     t = build_limb_tables(log_n, mods, device=card)
     x = _uniform((2, 3, 1 << log_n), t.q * (2 if inverse else 4), card, log_n)
     want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
     assert torch.equal(ntt_cuda(x, t, inverse), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [10, 13, 14, 15])
+@pytest.mark.parametrize("rows", [1, 2, 8, 80])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernel_matches_plain_at_row_counts(card, log_n, rows, inverse):
+    """One launch over 1, 2 and 8 rows (the main path's calls) and 80 (a
+    batch of 8 requests, 2 polys, 5 limbs); the dispatch sends every size
+    here to kernel A."""
+    k = {1: 1, 2: 2, 8: 2, 80: 5}[rows]
+    mods = CoeffModulus.create(1 << log_n, [60, 40, 40, 40, 60][:k])
+    t = build_limb_tables(log_n, mods, device=card)
+    x = _uniform((rows // k, k, 1 << log_n), t.q * (2 if inverse else 4), card, rows + log_n)
+    want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
+    before = ntt_cuda.launches
+    got = (NTT.inverse if inverse else NTT.forward)(x, t)
+    assert ntt_cuda.launches == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -100,16 +120,36 @@ def test_stage_kernel_matches_plain(card, log_n, inverse):
     ft = four_step_tables_for(t)
     x = _uniform((2, 3, 1 << log_n), t.q * (2 if inverse else 4), card, log_n)
     specs = FS.inverse_specs(ft) if inverse else FS.forward_specs(ft)
-    mats = (ft.finv, ft.winv) if inverse else (ft.w, ft.f)
+    names = ("finv", "winv") if inverse else ("w", "f")
     tws = ((ft.twi_op, ft.twi_qt) if inverse else (ft.tw_op, ft.tw_qt), None)
     h = x
-    for spec, b, tw in zip(specs, mats, tws):
-        got = stage_cuda(h, b, ft, spec, tw)
-        assert torch.equal(got, FS.stage_plain(h, b, ft, spec, tw))
+    for spec, name, tw in zip(specs, names, tws):
+        got = stage_cuda(h, name, ft, spec, tw)
+        assert torch.equal(got, FS.stage_plain(h, name, ft, spec, tw))
         h = got
     want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
     assert torch.equal(h, want)
     assert torch.equal((NTT.inverse if inverse else NTT.forward)(x, t), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [15, 16, 17])
+@pytest.mark.parametrize("rows", [1, 2, 6, 12])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stage_kernel_matches_plain_at_row_counts(card, log_n, rows, inverse):
+    """Both stages of every default split (256/128, 512/128, 512/256), with
+    and without the twiddle, over the row counts of the N=65536 request's
+    calls; the first stage's input lazy (below 4q)."""
+    k = {1: 1, 2: 2, 6: 3, 12: 4}[rows]
+    mods = CoeffModulus.create(1 << log_n, [60, 40, 40, 60][:k])
+    ft = four_step_tables_for(build_limb_tables(log_n, mods, device=card))
+    x = _uniform((rows // k, k, 1 << log_n), ft.q * 4, card, rows + log_n)
+    specs = FS.inverse_specs(ft) if inverse else FS.forward_specs(ft)
+    names = ("finv", "winv") if inverse else ("w", "f")
+    tw = (ft.twi_op, ft.twi_qt) if inverse else (ft.tw_op, ft.tw_qt)
+    for spec, name in zip(specs, names):
+        for twiddle in (tw, None):
+            assert torch.equal(stage_cuda(x, name, ft, spec, twiddle), FS.stage_plain(x, name, ft, spec, twiddle))
 
 
 @pytest.mark.cuda
@@ -134,10 +174,11 @@ def test_ntt_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_ntt_wrapper_refuses_n_beyond_shared_memory():
-    """N=32768 needs 256 KB for a row; a block has 227 KB."""
-    t = build_limb_tables(15, [Modulus(786433)], device="cpu")
-    with pytest.raises(ValueError, match="n <= 16384"):
-        ntt_cuda(torch.zeros((1, 1 << 15), dtype=torch.int64), t, inverse=True)
+    """Kernel A spreads a row over a cluster up to n = 32768, the JAX
+    package's fused range; larger rows go to the stage kernel."""
+    t = build_limb_tables(16, [Modulus(786433)], device="cpu")
+    with pytest.raises(ValueError, match="n <= 32768"):
+        ntt_cuda(torch.zeros((1, 1 << 16), dtype=torch.int64), t, inverse=True)
 
 
 def _corner_case(P, k, r, c, devices, transposed, seed):
@@ -191,7 +232,7 @@ def test_corner_turn_across_two_cards(card):
     t = build_limb_tables(13, mods, device=card)
     dist = DistNTT(four_step_tables_for(t), DeviceMesh(devices, ("limb",)))
     x = _uniform((2, 8192), t.q * 4, card, 3)
-    assert torch.equal(dist.forward(x, "remote"), NTT.forward(x, t))
+    assert torch.equal(dist.forward(x), NTT.forward(x, t))
 
 
 @pytest.mark.cuda
@@ -223,22 +264,25 @@ def test_batched_switch_key_kernel_matches_single_launches(card, diag, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("log_n", [13, 16])
-def test_stage_kernel_on_rank_shards(card, log_n):
-    """The distributed NTT's stages over 8 ranks: column shards of n2/8
-    (16 columns at both sizes) and row shards of n1/8 (8 rows at N=8192,
-    64 at N=65536), against the plain stage and the single-card transform."""
+@pytest.mark.parametrize("P", [2, 8])
+def test_stage_kernel_on_rank_shards(card, log_n, P):
+    """The distributed NTT's stages over P ranks: column shards of n2/P
+    (16 columns at P=8) and row shards of n1/P (8 rows at N=8192, 64 at
+    N=65536, P=8), against the plain stage and the single-card transform."""
     mods = CoeffModulus.create(1 << log_n, [60, 40, 40, 60])
     t = build_limb_tables(log_n, mods, device=card)
     ft = four_step_tables_for(t)
-    dist = DistNTT(ft, DeviceMesh([card] * 8, ("limb",)))
-    assert dist.cols == 16 and dist.rows == (8 if log_n == 13 else 64)
+    dist = DistNTT(ft, DeviceMesh([card] * P, ("limb",)))
+    assert dist.cols == ft.n2 // P and dist.rows == ft.n1 // P
     x = _uniform((4, 1 << log_n), t.q * 4, card, log_n)
     for m, col in enumerate(dist.split_columns(x)):
-        args = (col, ft.w, dist.tables[m], dist.spec_cols, dist.tw[m])
-        assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
+        for name, tw in (("w", dist.tw[m]), ("winv", None)):
+            args = (col, name, dist.tables[m], dist.spec_cols, tw)
+            assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
     for m, row in enumerate(dist.split_rows(x)):
-        args = (row, ft.finv, dist.tables[m], dist.spec_rows, dist.twi[m])
-        assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
+        for name, tw in (("finv", dist.twi[m]), ("f", None)):
+            args = (row, name, dist.tables[m], dist.spec_rows, tw)
+            assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
     before = corner_turn_cuda.launches
     fwd = dist.forward(x)
     assert torch.equal(fwd, NTT.forward(x, t))

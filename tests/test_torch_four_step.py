@@ -8,13 +8,16 @@
 (b) ``stage_plain`` equals the Pallas ``_stage_kernel`` through
     ``_run_stage(..., interpret=True)`` with and without the twiddle, at
     n1=512 with 60-bit moduli, where the JAX package splits the contraction
-    (kchunk 256 < K = 512).
+    (kchunk 256 < K = 512).  Butterflies over the tables' root tables (the
+    card's stage kernel runs them) equal ``stage_plain`` for all four
+    transforms; at the N=65536 and 131072 splits the root tables hold the
+    powers the matrices are built from.
 (c) ``four_step_forward`` / ``four_step_inverse`` equal
     ``pallas_ntt_forward`` / ``pallas_ntt_inverse(interpret=True)`` at
     n=2048, n2=4 (the staged branch), and the port's butterflies.
 (d) The staged key switch with the four-step NTT equals
     ``switch_key_contract_plain``.
-(e) ``ops/ntt.py`` sends a CUDA tensor above n=16384 to the stage kernel and
+(e) ``ops/ntt.py`` sends a CUDA tensor above n=32768 to the stage kernel and
     a smaller one to kernel A, and to the butterflies inside
     ``plain_on_card()``; the stage kernel's wrapper refuses CPU tensors.
     The card is faked; nothing runs on one.
@@ -125,8 +128,121 @@ def test_stage_equals_pallas_stage_kernel(staged_n1024, matrix, twiddle):
                                       transpose_const=False, interpret=True))
     spec = FS.StageSpec(512, 512, 2, (2, 1), (2, 1))
     ptw = (ft.tw_op, ft.tw_qt) if twiddle else None
-    got = FS.stage_plain(u64_from_numpy(x.reshape(2, 2, 1024), "cpu"), getattr(ft, matrix), ft, spec, ptw)
+    got = FS.stage_plain(u64_from_numpy(x.reshape(2, 2, 1024), "cpu"), matrix, ft, spec, ptw)
     np.testing.assert_array_equal(u64_to_numpy(got).reshape(x.shape), want)
+
+
+def _butterflies(x: np.ndarray, roots, q: int, inverse: bool) -> np.ndarray:
+    """The transform of every column of x (..., M, ncols), Python ints mod q,
+    as butterflies over one limb's root table: Cooley-Tukey, natural to
+    bit-reversed order (stage s reads slot 2^s + block), or Gentleman-Sande,
+    bit-reversed to natural (stage s reads slot 1 + M - M/2^s + block; slot 0
+    scales the last stage's sum, slot M - 1 is its root, already scaled)."""
+    a = x.copy()
+    M = a.shape[-2]
+    log_m = M.bit_length() - 1
+    for s in range(log_m):
+        if not inverse:
+            gap = M >> (s + 1)
+            for blk in range(1 << s):
+                lo = a[..., 2 * blk * gap:(2 * blk + 1) * gap, :]
+                hi = a[..., (2 * blk + 1) * gap:(2 * blk + 2) * gap, :]
+                t = hi * roots[(1 << s) + blk] % q
+                lo[...], hi[...] = (lo + t) % q, (lo - t) % q
+        else:
+            gap = 1 << s
+            offset = 1 + M - (M >> s)
+            for blk in range(M >> (s + 1)):
+                lo = a[..., 2 * blk * gap:(2 * blk + 1) * gap, :]
+                hi = a[..., (2 * blk + 1) * gap:(2 * blk + 2) * gap, :]
+                scale = roots[0] if s == log_m - 1 else 1
+                lo[...], hi[...] = (lo + hi) * scale % q, (lo - hi) * roots[offset + blk] % q
+    return a
+
+
+def _stage_by_butterflies(x: torch.Tensor, name: str, ft, spec, twiddle) -> torch.Tensor:
+    """A stage as the card's kernel computes it: read each column through the
+    input strides, run the named transform's butterflies, multiply by the
+    twiddle at the output position and write through the output strides."""
+    *lead, k, n = x.shape
+    xs = u64_to_numpy(x).reshape(-1, k, n).astype(object)
+    out = np.empty_like(xs)
+    roots = u64_to_numpy(getattr(ft, f"{name}_roots")).astype(object)
+    tw = None if twiddle is None else u64_to_numpy(twiddle[0]).astype(object)
+    m_idx, t_idx = np.meshgrid(np.arange(spec.M), np.arange(spec.ncols), indexing="ij")
+    src = m_idx * spec.x_strides[0] + t_idx * spec.x_strides[1]
+    dst = m_idx * spec.out_strides[0] + t_idx * spec.out_strides[1]
+    for limb, q in enumerate(ft.moduli_values):
+        col = xs[:, limb][:, src] % q                                   # (rows, M, ncols)
+        y = _butterflies(col, list(roots[limb, 0]), q, name in FS.INVERSE_TRANSFORMS)
+        if tw is not None:
+            y = y * tw[limb][dst] % q
+        out[:, limb][:, dst] = y
+    return u64_from_numpy(out.astype(np.uint64).reshape(x.shape), "cpu")
+
+
+@pytest.mark.parametrize("log_n, n2, inv_scale", [
+    (12, 64, None),                   # n1 = n2
+    (11, 16, [3, 1 << 40]),           # n1 = 128 > n2, inv_scale != 1
+    (10, 128, [65537, 5]),            # n1 = 8 < n2
+])
+@pytest.mark.parametrize("twiddle", [False, True])
+def test_butterflies_over_root_tables_equal_stage_plain(log_n, n2, inv_scale, twiddle):
+    """Every transform of both directions, in both stage layouts, on lazy
+    inputs (below 4q forward, 2q inverse)."""
+    mods = CoeffModulus.create(1 << log_n, [60, 40])
+    ft = build_four_step_tables(log_n, mods, n2=n2, inv_scale=inv_scale, device="cpu")
+    gen = torch.Generator().manual_seed(log_n + twiddle)
+    cases = ((FS.forward_specs(ft), ("w", "f"), (ft.tw_op, ft.tw_qt), 4),
+             (FS.inverse_specs(ft), ("finv", "winv"), (ft.twi_op, ft.twi_qt), 2))
+    for specs, names, tw, lazy in cases:
+        for spec, name in zip(specs, names):
+            x = torch.randint(0, 1 << 62, (2, 2, 1 << log_n), generator=gen) % (lazy * ft.q)
+            x[0, :, 0] = lazy * ft.q[:, 0] - 1
+            twx = tw if twiddle else None
+            assert torch.equal(_stage_by_butterflies(x, name, ft, spec, twx),
+                               FS.stage_plain(x, name, ft, spec, twx)), name
+
+
+@pytest.mark.parametrize("log_n", [16, 17])
+def test_root_tables_hold_the_matrices_powers_at_large_n(log_n):
+    """At N=65536 (512 x 128) and 131072 (512 x 256), where the dense
+    product is too slow to run here: the generators read from the matrices
+    (W[0, r] = eta^r, F[t2, 1] = zeta^brv(t2)) and the scales (Winv[0, 0],
+    Finv[0, 0]) give every slot of the four root tables by the butterflies'
+    table rules, and the Shoup quotients match."""
+    mods = CoeffModulus.create(1 << log_n, [50])
+    ft = build_four_step_tables(log_n, mods, device="cpu")
+    q = ft.moduli_values[0]
+    n1, n2 = ft.n1, ft.n2
+    W, F = u64_to_numpy(ft.w[0]).astype(object), u64_to_numpy(ft.f[0]).astype(object)
+    Winv, Finv = u64_to_numpy(ft.winv[0]).astype(object), u64_to_numpy(ft.finv[0]).astype(object)
+    eta = int(W[0, 1])                     # W[0, r] = eta^r (brv(0) = 0)
+    zeta = int(F[1 << (n2.bit_length() - 2), 1])   # F[t2, 1] = zeta^brv(t2); brv(n2/2) = 1
+    assert int(W[0, 2]) == eta * eta % q and pow(eta, n1, q) == q - 1
+    assert pow(zeta, n2, q) == 1 and pow(zeta, n2 // 2, q) == q - 1
+    inv_n1, inv_n2 = int(Winv[0, 0]), int(Finv[0, 0])       # the scales, row 0 of the inverses
+    assert inv_n1 * n1 % q == 1 and inv_n2 * n2 % q == 1
+
+    def brv(v, bits):
+        return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+    for name, M, root, cyclic in (("w", n1, eta, False), ("f", n2, zeta, True)):
+        log_m = M.bit_length() - 1
+        fwd = [int(v) for v in u64_to_numpy(getattr(ft, f"{name}_roots")[0, 0])]
+        qt = [int(v) for v in u64_to_numpy(getattr(ft, f"{name}_roots")[0, 1])]
+        inv = [int(v) for v in u64_to_numpy(getattr(ft, f"{name}inv_roots")[0, 0])]
+        scale = inv_n2 if cyclic else inv_n1
+        assert fwd[0] == 1 and inv[0] == scale
+        for s in range(log_m):
+            for b in range(1 << s):
+                e = brv(b, s) * (M >> (s + 1)) if cyclic else brv((1 << s) + b, log_m)
+                assert fwd[(1 << s) + b] == pow(root, e, q)
+                assert qt[(1 << s) + b] == (fwd[(1 << s) + b] << 64) // q
+            offset = 1 + M - (M >> s)
+            for b in range(M >> (s + 1)):
+                want = pow(fwd[(M >> (s + 1)) + b], -1, q) * (scale if s == log_m - 1 else 1) % q
+                assert inv[offset + b] == want
 
 
 @pytest.fixture(scope="module")
@@ -191,13 +307,13 @@ class _OnCard(torch.Tensor):
         return True
 
 
-@pytest.mark.parametrize("log_n, stage_launches, ntt_launches", [(15, 2, 0), (14, 0, 1)])
+@pytest.mark.parametrize("log_n, stage_launches, ntt_launches", [(15, 0, 1), (14, 0, 1), (16, 2, 0)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_dispatch_sends_large_n_on_card_to_stage_kernel(monkeypatch, log_n, stage_launches,
                                                         ntt_launches, inverse):
     calls = {"stage": 0, "ntt": 0}
 
-    def fake_stage(x, b, ft, spec, twiddle=None):
+    def fake_stage(x, name, ft, spec, twiddle=None):
         calls["stage"] += 1
         assert spec.M * spec.ncols == 1 << log_n
         return x.as_subclass(torch.Tensor).clone()
@@ -261,4 +377,14 @@ def test_stage_wrapper_refuses_what_the_kernel_does_not_take():
     ft = build_four_step_tables(10, CoeffModulus.create(1024, [40]), n2=32, device="cpu")
     spec_a, _ = FS.forward_specs(ft)
     with pytest.raises(ValueError, match="CUDA"):
-        stage_cuda(torch.zeros((1, 1024), dtype=torch.int64), ft.w, ft, spec_a)
+        stage_cuda(torch.zeros((1, 1024), dtype=torch.int64), "w", ft, spec_a)
+
+
+def test_stage_refuses_an_unknown_transform():
+    """The stage names a transform of the tables, of the stage's size."""
+    ft = build_four_step_tables(10, CoeffModulus.create(1024, [40]), n2=16, device="cpu")
+    spec_a, _ = FS.forward_specs(ft)
+    with pytest.raises(ValueError, match="one of"):
+        FS.stage_plain(torch.zeros((1, 1024), dtype=torch.int64), "t", ft, spec_a)
+    with pytest.raises(ValueError, match="16-point"):
+        FS.stage_plain(torch.zeros((1, 1024), dtype=torch.int64), "f", ft, spec_a)
