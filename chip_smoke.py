@@ -14,9 +14,10 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
    transforms of one request at N=32768 (one launch each), with the
    kernel's time by CUDA events and by the profiler's device time, and the
    plain version's;
-3. kernel B (fused key-switch contraction) against its plain version:
-   D=4 with and without the diagonal, the next level's key trim, and D=66
-   at N=1024 (the Barrett guard every 64 summands), timed the same ways;
+3. kernel B (fused key-switch contraction, a thread block cluster per
+   output row) against its plain version: D=4 with and without the
+   diagonal, the next level's key trim, and D=66 at N=1024 (the Barrett
+   guard every 64 summands), timed the same ways;
 4. the slice: Evaluator multiply -> relinearize -> rescale_to_next for 8
    requests at CKKS N=8192, bits [60, 40, 40, 40, 60], equal to the plain
    path on the card, the first request equal to the golden digest of the
@@ -55,7 +56,24 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        shapes in both directions and at P=2, r=1, timed against its plain
        version, one PyTorch permute+copy_ (its library yardstick) and its
        bound;
-   (d) ``dryrun.dryrun_multichip(8, devices=[card] * 8)``.
+   (d) ``dryrun.dryrun_multichip(8, devices=[card] * 8)``;
+9. the N=32768 server request on the default 128-bit chain
+   (``golden.medium_context``: ``CoeffModulus.bfv_default(32768)``, 16
+   moduli, ``SecurityLevel.TC128``; D=15, Rn=16), splitmix inputs:
+   (a) the baseline first: 4 requests with the key switch forced to the
+       staged formulation (the decompose and contraction in plain PyTorch,
+       the NTT on kernel A), as the parent tree ran this size; ms and
+       launches per request, the staged key switch's own device time;
+   (b) kernel B bit-exact against its plain version at D=15, Rn=16, with
+       and without the diagonal, at the next level (key rows trimmed) and
+       batched over 4 ciphertexts; device time, events, plain, bound;
+   (c) the 4 requests of Evaluator multiply -> relinearize ->
+       rescale_to_next through kernel B, sequentially and as one
+       ``BatchEvaluator`` batch: request 0 equal to the plain path on the
+       card and to ``golden.MEDIUM_DIGEST``, the batch and the baseline
+       equal to the sequential outputs, 1 launch of kernel B per request and
+       per batch and none of the stage kernel; ms and launches per request,
+       device-busy share and a profiler split.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -159,16 +177,19 @@ def ntt_work(rows, k, log_n):
     return nbytes, ops
 
 
-def switch_key_work(D, key_rows, Rn, log_n, diag):
+def switch_key_work(D, key_rows, Rn, log_n, diag, B=1):
+    """Bytes and 32-bit operations of one kernel-B call over B ciphertexts:
+    their rows in (t_c, and t_n with the diagonal), the key's 2 D rows of Rn
+    limbs once, the (Rn, n) root table pair, B outputs of 2 Rn rows."""
     n = 1 << log_n
-    nbytes = 8 * n * (D * (2 if diag else 1) + 2 * D * Rn + 2 * Rn + 2 * Rn)
+    nbytes = 8 * n * (B * D * (2 if diag else 1) + 2 * D * Rn + 2 * Rn + B * 2 * Rn)
     ntts = D * Rn - (D if diag else 0)
     ops = ntts * log_n * (n // 2) * OPS_BUTTERFLY
     # per (j, i, coefficient): Barrett-64 (2 mul, 2 add), two guards, two
     # 64x64->128 products and two u128 adds; per output: Barrett-128
     ops += D * Rn * n * (2 * OPS_MUL64 + 2 * OPS_ADD64 + 2 * OPS_ADD64 + 2 * OPS_MUL64 + 4 * OPS_ADD64)
     ops += 2 * Rn * n * (5 * OPS_MUL64 + 8 * OPS_ADD64)
-    return nbytes, ops
+    return nbytes, B * ops
 
 
 def stage_work(rows, k, spec, twiddle):
@@ -407,6 +428,175 @@ def multi_device_phase(dev, ctx, cts, rk, seq_outs, big_t, gen):
     return entry, sk_batch_ms / requests
 
 
+def medium_phase(gen):
+    """Phase 9: the N=32768 server request on the default 128-bit chain.
+    Returns kernel B's numbers at this size for the kernels' JSON line."""
+    from seal_tpu_torch import golden
+    from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_to_numpy
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.ops import cuda_switch_key as SK
+    from seal_tpu_torch.ops import ntt as NTT
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+
+    kernel_b = SK.switch_key_contract_cuda
+    ctx = golden.medium_context()                        # the default device: the card
+    cd = ctx.first_context_data()
+    n = golden.MEDIUM_N
+    requests = 4
+    scale = 2.0 ** 40
+    t0 = time.perf_counter()
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, "cuda")
+    cts = []
+    for r in range(requests):
+        d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)
+        cts.append((ciphertext_from_numpy(d1, ctx.first_parms_id, True, scale, "cuda"),
+                    ciphertext_from_numpy(d2, ctx.first_parms_id, True, scale, "cuda")))
+    torch.cuda.synchronize()
+    ev = Evaluator(ctx)
+    plan = ev._plan(cd)
+    D, sel = plan.D, plan.sel_tables
+    Rn = sel.q.shape[0]
+    print(f"[medium] N={n}, {golden.MEDIUM_CHAIN}: D={D}, Rn={Rn}; splitmix key and {requests} request pairs "
+          f"made and copied to the card in {time.perf_counter() - t0:.1f} s")
+
+    def serve():
+        return [ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk)) for a, b in cts]
+
+    groups = {"kernel A forward": "ntt_forward_kernel", "kernel A inverse": "ntt_inverse_kernel",
+              "kernel B": "switch_key_kernel"}
+
+    def measure(label, fn, count):
+        """Warm-up, one counted run, 3 timed runs, one profiled run: the
+        outputs, the launches of A, B and the stage kernel, and the times."""
+        fn()
+        torch.cuda.synchronize()
+        ntt_cuda.launches = kernel_b.launches = stage_cuda.launches = 0
+        outs = fn()
+        torch.cuda.synchronize()
+        launches = (ntt_cuda.launches, kernel_b.launches, stage_cuda.launches)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / count)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, split = device_split(prof, groups)
+        n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if by_name:
+            busy = sum(by_name.values()) / 1e3
+            prof_line = (f"under the profiler {n_dev / count:.1f} device launches per request, device busy "
+                         f"{busy / count:.3f} ms per request, {100 * busy / wall_ms:.1f}% of wall; per request "
+                         + ", ".join(f"{g} {v / 1e3 / count:.4f} ms" for g, v in split.items())
+                         + f", other kernels (plain PyTorch elementwise arithmetic, copies) "
+                         f"{(busy - sum(split.values()) / 1e3) / count:.3f} ms")
+        else:
+            prof_line = "the profiler recorded no device time: not measured"
+        print(f"[medium] {label}: launches for {count} requests: kernel A {launches[0]}, kernel B {launches[1]}, "
+              f"stage kernel {launches[2]}; ms per request over 3 runs "
+              f"{', '.join(f'{t:.3f}' for t in times)} (median {sorted(times)[1]:.3f}); {prof_line}")
+        return outs, launches
+
+    # (a) the baseline: the parent's path at this size, the key switch
+    # forced to the staged formulation (kernel B's range cut to n <= 16384
+    # for this block only)
+    level_t = cd.limb_tables()
+    t_n = lazy_input(level_t, (D, n), 1, gen)
+    t_c = NTT.ntt_inverse(t_n, level_t)
+    key = lazy_input(sel, (2, D, Rn, n), 1, gen)
+    kernel_range = SK.MAX_LOG_N
+    SK.MAX_LOG_N = 14
+    try:
+        staged_outs, staged_launches = measure("baseline, the staged key switch", serve, requests)
+        check(staged_launches[1] == 0, "the baseline launched kernel B")
+        staged_fn = lambda: SK.switch_key_contract(t_c, t_n, key, sel, plan.need_reduce)
+        staged = staged_fn()
+        staged_events = cuda_ms(staged_fn, 5, warmup=1)
+        staged_wall, staged_n, staged_busy = profile_run(staged_fn)
+    finally:
+        SK.MAX_LOG_N = kernel_range
+    staged_line = ("the profiler recorded no device time: not measured" if staged_n is None else
+                   f"device time {staged_busy * 1e3:.1f} us in {staged_n} launches, wall {staged_wall * 1e3:.1f} us")
+    print(f"[medium] baseline: the staged key switch alone (D={D}, Rn={Rn}, N={n}): {staged_line}; "
+          f"{staged_events * 1e3:.1f} us a call back to back by events")
+
+    # (b) kernel B against its plain version
+    check(torch.equal(kernel_b(t_c, t_n, key, sel, plan.need_reduce), staged),
+          "kernel B differs from the staged key switch at N=32768")
+    nxt = cd.next_context_data
+    nplan = ev._plan(nxt)
+    nt = nxt.limb_tables()
+    nt_n = lazy_input(nt, (nplan.D, n), 1, gen)
+    bt_n = lazy_input(level_t, (requests, D, n), 1, gen)
+    cases = [("the request's call", t_c, t_n, key, sel, plan.need_reduce, True),
+             ("no diagonal", t_c, None, key, sel, plan.need_reduce, False),
+             ("next level, key trimmed", NTT.ntt_inverse(nt_n, nt), nt_n,
+              lazy_input(nplan.sel_tables, (2, D, Rn - 1, n), 1, gen), nplan.sel_tables, nplan.need_reduce, True),
+             (f"batch of {requests}", NTT.ntt_inverse(bt_n, level_t), bt_n, key, sel, plan.need_reduce, True)]
+    result = {}
+    max_err = 0
+    for label, c_, n_, k_, t_, need, diag in cases:
+        fn = lambda: kernel_b(c_, n_, k_, t_, need)
+        got = fn()
+        want = SK.switch_key_contract_plain(c_, n_, k_, t_, need)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"kernel B disagrees with its plain version at N={n}, {label}: max abs err {err}")
+        max_err = max(max_err, err)
+        ms, events_ms = kernel_ms(fn, 20)
+        plain_ms = cuda_ms(lambda: SK.switch_key_contract_plain(c_, n_, k_, t_, need), 2, warmup=1)
+        B = c_.shape[0] if c_.dim() == 3 else 1
+        nbytes, ops = switch_key_work(c_.shape[-2], k_.shape[1], t_.q.shape[0], cd.log_n, diag, B)
+        b, by = bound_ms(nbytes, ops)
+        print(f"[medium] kernel B, {label} (B={B}, D={c_.shape[-2]}, key rows {k_.shape[1]}, Rn={t_.q.shape[0]}): "
+              f"bit-exact; kernel {ms * 1e3:.2f} us device time ({ms * 1e3 / B:.2f} us per ciphertext), "
+              f"{events_ms * 1e3:.2f} us back to back by events; plain {plain_ms * 1e3:.1f} us by events; bound "
+              f"{b * 1e3:.3f} us ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G 32-bit operations)")
+        if not result:
+            result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "max_abs_err": 0}
+    result["max_abs_err"] = max_err
+    result["staged_ms"] = None if staged_n is None else staged_busy
+
+    # (c) the requests through kernel B
+    with NTT.plain_on_card():
+        ref0 = ev.rescale_to_next(ev.relinearize(ev.multiply(*cts[0]), rk))
+    outs, launches = measure("kernel B, sequential", serve, requests)
+    check(launches[1] == requests and launches[2] == 0,
+          f"sequential requests launched kernel B {launches[1]} and the stage kernel {launches[2]} times; "
+          f"expected {requests} and 0")
+    check(torch.equal(outs[0].data, ref0.data), "request 0 differs from the plain path on the card")
+    check(tuple(outs[0].data.shape) == (2, D - 1, n) and outs[0].parms_id == cd.next_context_data.parms_id,
+          "request 0: wrong shape or level")
+    dig = golden.digest(u64_to_numpy(outs[0].data))
+    check(dig == golden.MEDIUM_DIGEST, f"N={n} golden digest mismatch: {dig}")
+    for r in range(requests):
+        check(torch.equal(outs[r].data, staged_outs[r].data), f"request {r} differs from the staged baseline")
+    bev = BatchEvaluator(ctx)
+
+    def serve_batch():
+        b1 = CiphertextBatch.from_ciphertexts([a for a, _ in cts])
+        b2 = CiphertextBatch.from_ciphertexts([b for _, b in cts])
+        return bev.rescale_to_next(bev.relinearize(bev.multiply(b1, b2), rk))
+
+    batch, blaunches = measure(f"kernel B, one batch of {requests}", serve_batch, requests)
+    check(blaunches[1] == 1 and blaunches[2] == 0,
+          f"the batch launched kernel B {blaunches[1]} and the stage kernel {blaunches[2]} times; expected 1 and 0")
+    for r in range(requests):
+        check(torch.equal(batch.data[r], outs[r].data), f"batched request {r} differs from the sequential one")
+    print(f"[medium] {requests} requests of multiply -> relinearize -> rescale_to_next: request 0 equal to the plain "
+          f"path on the card and to the JAX package's N={n} digest; the batch and the staged baseline equal to the "
+          f"sequential outputs; kernel B {launches[1] // requests} launch per request, 1 per batch; kernel A "
+          f"{launches[0] / requests:g} per request; no stage-kernel launch")
+    result["launches"] = launches[1]
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -449,7 +639,7 @@ def main():
         log = cuda_build.BUILD_DIR / f"{name}.log"
         if log.exists():
             for line in log.read_text(errors="replace").splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or "spill" in line:
                     print(f"[setup] ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda")
@@ -867,6 +1057,9 @@ def main():
     turn_entry, sk_batched_ms = multi_device_phase(
         torch.device("cuda", torch.cuda.current_device()), ctx, cts, rk, outs, lt_key, gen)
 
+    # ---- phase 9: the N=32768 request on the default chain ---------------
+    sk_medium = medium_phase(gen)
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
@@ -875,8 +1068,9 @@ def main():
          "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None},
         {"name": "switch_key", "route": "cuda", "source": "seal_tpu_torch/csrc/switch_key.cu",
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
-         "max_abs_err": max_err["switch_key"], "ms": sk_main["ms"], "plain_ms": sk_main["plain_ms"],
-         "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"], "library_ms": None},
+         "max_abs_err": max(max_err["switch_key"], sk_medium["max_abs_err"]), "ms": sk_main["ms"],
+         "plain_ms": sk_main["plain_ms"], "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"],
+         "library_ms": None, "n32768": sk_medium},
         {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
@@ -891,7 +1085,10 @@ def main():
           "modular reduction); the corner turn's numbers sum its forward and inverse turn of one N=65536 round "
           "trip, its launches count the counted remote round trip, its library_ms is one permute+copy_ of the "
           "stacked ranks per turn")
-    print(f"[done] kernel B batched over phase 4's {len(cts)} requests: {sk_batched_ms * 1e3:.2f} us per request")
+    print(f"[done] kernel B batched over phase 4's {len(cts)} requests: {sk_batched_ms * 1e3:.2f} us per request "
+          f"by events; kernel B's n32768 entry: phase 9's call of one N=32768 request (profiler device time), its "
+          f"plain version, its bound, its launches in the counted sequential run, and staged_ms, the device time "
+          f"of the staged key switch it replaces (every kernel summed)")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

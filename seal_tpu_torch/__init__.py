@@ -6,7 +6,7 @@ server's ciphertext x ciphertext multiply, relinearize and rescale
 (``pipeline.build_ckks_mult_relin_rescale``), decrypt and decode, at every
 ring size up to N=131072.  Three hand-written Hopper kernels carry it: the
 negacyclic NTT up to N=32768 (``csrc/ntt.cu``), the fused key-switch
-contraction up to N=16384 (``csrc/switch_key.cu``) and the four-step stage
+contraction up to N=32768 (``csrc/switch_key.cu``) and the four-step stage
 that serves every NTT above N=32768 (``csrc/four_step.cu``); a fourth, the
 corner turn (``csrc/corner_turn.cu``), is the distributed NTT's exchange.
 The package imports neither JAX nor ``seal_tpu``.

@@ -25,7 +25,8 @@
 // column pass runs them, each thread reading the C elements of one offset
 // from device memory, doing the butterflies in registers and writing each
 // result into the shared memory of the block that owns it, through
-// distributed shared memory; one cluster barrier follows.  The remaining
+// distributed shared memory (ntt_cluster.cuh, shared with kernel B); one
+// cluster barrier follows.  The remaining
 // log2(L) stages are local and run three per __syncthreads() in registers
 // (ntt_passes.cuh), with the block's roots staged in shared memory once.  The
 // inverse mirrors it: local stages first, then the cross-chunk column pass,
@@ -37,24 +38,18 @@
 #include <algorithm>
 #include <cstdint>
 
-#include "ntt_passes.cuh"
+#include "ntt_cluster.cuh"
 
 namespace cg = cooperative_groups;
 using seal_tpu_torch::column_stride;
 using seal_tpu_torch::guard;
 using seal_tpu_torch::pad8;
+using seal_tpu_torch::share_of;
 using seal_tpu_torch::shoup_lazy;
 
 namespace {
 
 constexpr int kMaxThreads = 512;
-
-// The cross-chunk offsets [lo, hi) that block c of the cluster runs.
-__device__ __forceinline__ void share_of(int c, int L, int log_c, int* lo, int* hi) {
-    const int share = (L + (1 << log_c) - 1) >> log_c;
-    *lo = c * share;
-    *hi = min(L, *lo + share);
-}
 
 // grid: rows * C blocks in clusters of C; cluster r transforms row r with
 // limb r % k.  op, qt: the (k, n) forward table (slot 2^s + block).
@@ -80,50 +75,18 @@ __global__ void __launch_bounds__(kMaxThreads) ntt_forward_kernel(
 
     // Every block of the cluster must have started before any writes into
     // its shared memory: arrive now, wait just before the first remote write.
-    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-
-    // Local stage s of chunk c is global stage s + LOG_C; its blocks c 2^s
-    // .. (c+1) 2^s - 1 read global slots (C + c) 2^s + j, kept at 2^s + j.
-    for (int ls = 1 + threadIdx.x; ls < L; ls += blockDim.x) {
-        const int s = 31 - __clz(ls);
-        const int g = ((C + c) << s) + (ls - (1 << s));
-        t_op[ls] = rop[g];
-        t_qt[ls] = rqt[g];
-    }
-    uint64_t* chunk[C];
-#pragma unroll
-    for (int e = 0; e < C; ++e) chunk[e] = cluster.map_shared_rank(data, e);
+    seal_tpu_torch::cluster_arrive();
+    seal_tpu_torch::stage_local_forward_roots(t_op, t_qt, rop, rqt, c, LOG_C, L);
     uint64_t w_op[C], w_qt[C];               // slots 1 .. C-1: the cross stages' roots
 #pragma unroll
     for (int i = 1; i < C; ++i) {
         w_op[i] = rop[i];
         w_qt[i] = rqt[i];
     }
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    seal_tpu_torch::cluster_wait();
 
     const uint64_t* xr = x + (static_cast<size_t>(row) << log_n);
-    int lo, hi;
-    share_of(c, L, LOG_C, &lo, &hi);
-    for (int o = lo + threadIdx.x; o < hi; o += blockDim.x) {
-        uint64_t v[C];
-#pragma unroll
-        for (int e = 0; e < C; ++e) v[e] = xr[(e << log_l) + o];
-#pragma unroll
-        for (int s = 0; s < LOG_C; ++s) {
-            const int half = 1 << (LOG_C - 1 - s);
-#pragma unroll
-            for (int e = 0; e < C; ++e) {
-                if (e & half) continue;
-                const int slot = (1 << s) + (e >> (LOG_C - s));
-                const uint64_t u = guard(v[e], two_q);
-                const uint64_t t = shoup_lazy(v[e | half], w_op[slot], w_qt[slot], q);
-                v[e] = u + t;
-                v[e | half] = u + two_q - t;
-            }
-        }
-#pragma unroll
-        for (int e = 0; e < C; ++e) chunk[e][pad8(o)] = v[e];
-    }
+    seal_tpu_torch::cross_forward_pass<LOG_C>(data, log_l, [&](int idx) { return xr[idx]; }, w_op, w_qt, q);
     cluster.sync();
 
     seal_tpu_torch::ct_stages(data, column_stride(log_l), 1, log_l, t_op, t_qt, q);

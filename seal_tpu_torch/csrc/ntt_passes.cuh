@@ -1,7 +1,8 @@
 // Butterfly passes over columns held in shared memory, several stages per
 // __syncthreads().
 //
-// Shared by kernel A (ntt.cu) and the four-step stage kernel (four_step.cu).
+// Shared by kernels A (ntt.cu) and B (switch_key.cu) and the four-step stage
+// kernel (four_step.cu).
 // A column is an M = 2^log_m point transform; element i sits at
 // a[pad8(i)] (one padding word per 8 spreads the strided accesses of the
 // later passes over the banks), and column c of a block at a + c * cs.  A
@@ -10,8 +11,8 @@
 // butterflies in registers and writes the group back.  So an M-point
 // transform takes ceil(log2(M) / 3) barriers instead of log2(M).
 //
-// The arithmetic is that of kernel A's row functions (ntt_device.cuh) and of
-// the plain version (ops/ntt.py): Harvey butterflies with Shoup twiddles,
+// The arithmetic is that of the plain version (ops/ntt.py), on the primitives
+// of ntt_device.cuh: Harvey butterflies with Shoup twiddles,
 // [0, 4q) through the forward stages and [0, 2q) through the inverse.  Root
 // tables are laid out as ntt_tables.py describes: forward stage s (2^s
 // blocks) reads slot 2^s + block; inverse stage s (M / 2^(s+1) blocks) reads

@@ -15,9 +15,15 @@ inputs ``key_inputs(ctx, GOLDEN_KEY_SEED)`` and
 coefficient-modulus bits [60, 40, 40, 40, 60], ``SecurityLevel.NONE`` and
 the chain expanded (the context of ``__graft_entry__._build``).
 ``LARGE_DIGEST`` is the same for N=65536 with bits [60, 40, 40, 60], where
-every NTT of the card runs on the four-step stage kernel.  Both were
-computed once with the JAX package on the CPU; ``tests/test_torch_slice.py``
-recomputes them from both the JAX package and the port's plain path, and
+every NTT of the card runs on the four-step stage kernel.
+``MEDIUM_DIGEST`` is the same for N=32768 on the default 128-bit chain
+(:func:`medium_context`: ``CoeffModulus.bfv_default(32768)``, 16 moduli,
+``SecurityLevel.TC128``), the heaviest key switch of the repository's
+configurations (D=15 decomposition rows, Rn=16 output limbs), fused into one
+launch of kernel B on the card.  All three were computed once with the JAX
+package on the CPU; ``tests/test_torch_slice.py``
+recomputes them from both the JAX package and the port's plain path (the
+JAX side of ``MEDIUM_DIGEST`` in a test marked ``slow``), and
 ``chip_smoke.py`` from the kernels on the card.
 """
 
@@ -29,6 +35,8 @@ from typing import Tuple
 import numpy as np
 
 from .context import SealContext
+from .modulus import CoeffModulus, SecurityLevel
+from .params import EncryptionParameters, SchemeType
 
 GOLDEN_N = 8192
 GOLDEN_BITS = (60, 40, 40, 40, 60)
@@ -38,6 +46,9 @@ GOLDEN_DIGEST = "07ad955fcfa99447cf40fde7c64159c6b2b7a2e658684cdd61dc917dd569b6e
 LARGE_N = 65536
 LARGE_BITS = (60, 40, 40, 60)
 LARGE_DIGEST = "a125529dbd63f6a1af2c9c146075c5b0291303113d8ae5ce08151d1c208aa702"
+MEDIUM_N = 32768
+MEDIUM_CHAIN = "CoeffModulus.bfv_default(32768): 16 moduli, 881 bits; SecurityLevel.TC128; chain expanded"
+MEDIUM_DIGEST = "c71d85f32d95061a9225125fc67ab03d618d1e2a6b377020504f2e7ac8ff415e"
 
 _GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _M1 = np.uint64(0xBF58476D1CE4E5B9)
@@ -58,6 +69,15 @@ def _residues(seed: int, moduli, lead: Tuple[int, ...], n: int) -> np.ndarray:
     q = np.array(moduli, dtype=np.uint64).reshape(-1, 1)
     count = int(np.prod(lead, dtype=np.int64)) * len(moduli) * n
     return splitmix64(seed, count).reshape(*lead, len(moduli), n) % q
+
+
+def medium_context(device=None) -> SealContext:
+    """The CKKS context of ``MEDIUM_DIGEST`` (``MEDIUM_CHAIN``), the chain of
+    ``benchmarks/batched_32768.py``."""
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(MEDIUM_N)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(MEDIUM_N))
+    return SealContext(parms, True, SecurityLevel.TC128, device=device)
 
 
 def request_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]:

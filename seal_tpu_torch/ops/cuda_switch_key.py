@@ -5,10 +5,12 @@
 ``switch_key_contract_plain`` is the staged formulation of
 ``seal_tpu/evaluator.py:594-630``: reduce, batched forward NTT, u128
 contraction over the decomposition axis with a Barrett guard every 64
-summands, final Barrett.  Above n = 16384 a row no longer fits a block's
-shared memory and the card runs that staged formulation itself, as the JAX
-package does there (``pallas_switch_key.py:52-56``): the decompose and the
-contraction in plain PyTorch, the batched NTT on the four-step stage kernel.
+summands, final Barrett.  The kernel spreads a row over the shared memory
+of a thread block cluster, up to n = 32768, the JAX package's fused range
+(``pallas_switch_key.py:49-56``, ``fits_fused``).  Above it the card runs
+the staged formulation itself, as the JAX package does there: the decompose
+and the contraction in plain PyTorch, the batched NTT on the four-step stage
+kernel.
 All take the contract of
 ``seal_tpu.ops.pallas_switch_key.switch_key_contract``:
 
@@ -39,11 +41,12 @@ from . import cuda_build
 from . import u64 as U
 from .ntt import forward, ntt_forward, use_kernels
 
-# Kernel B keeps a row in one block's shared memory: n <= 16384.
-MAX_LOG_N = 14
+# Kernel B spreads a row over a cluster of 8 blocks' shared memory:
+# n <= 32768, as kernel A.
+MAX_LOG_N = 15
 
 _ACC_WINDOW = 64  # lazy u128 summands between Barrett guards (defines.h:66)
-_MIN_LOG_N = 3    # the kernel gives each thread 8 coefficients
+_MIN_LOG_N = 3    # a cluster of 2 blocks, chunks of at least 4 coefficients
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,18 +87,21 @@ def _lib():
 
 
 def _check_inputs(t_c, t_n, key, t, need_reduce, row_offset):
-    dev = t_c.device
+    if t_c.dim() not in (2, 3):
+        raise ValueError("t_c must have shape (D, n) or (B, D, n)")
+    D, n = t_c.shape[-2:]
+    if not (_MIN_LOG_N <= t.log_n <= MAX_LOG_N):
+        raise ValueError(f"switch_key_contract_cuda spreads a row over a cluster's shared memory and supports "
+                         f"{1 << _MIN_LOG_N} <= n <= {1 << MAX_LOG_N}, got n={n}")
     if not t_c.is_cuda:
         raise ValueError("switch_key_contract_cuda takes CUDA tensors")
+    dev = t_c.device
     tensors = {"t_c": t_c}
     if t_n is not None:
         tensors["t_n"] = t_n
     for name, a in tensors.items():
         if a.device != dev or a.dtype != torch.int64 or not a.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int64 tensor on {dev}")
-    if t_c.dim() not in (2, 3):
-        raise ValueError("t_c must have shape (D, n) or (B, D, n)")
-    D, n = t_c.shape[-2:]
     if t_n is not None and t_n.shape != t_c.shape:
         raise ValueError("t_n must have the shape of t_c")
     if key.dim() != 4 or key.shape[0] != 2 or key.shape[1] < D or key.shape[3] != n:
@@ -106,8 +112,6 @@ def _check_inputs(t_c, t_n, key, t, need_reduce, row_offset):
         raise ValueError(f"key must be an int64 tensor on {dev} whose rows of (Rn, n) are contiguous")
     if t.q.shape[0] != Rn or n != 1 << t.log_n:
         raise ValueError("tables must cover the Rn output moduli at the data's n")
-    if not (_MIN_LOG_N <= t.log_n <= MAX_LOG_N):
-        raise ValueError(f"switch_key_contract_cuda supports {1 << _MIN_LOG_N} <= n <= {1 << MAX_LOG_N}, got n={n}")
     if t_c.numel() // (D * n or 1) > 65535:
         raise ValueError("switch_key_contract_cuda takes at most 65535 ciphertexts a launch")
     if need_reduce.shape != (D, Rn) or need_reduce.dtype != torch.bool or need_reduce.device != dev:
@@ -122,8 +126,8 @@ def _check_inputs(t_c, t_n, key, t, need_reduce, row_offset):
 
 def switch_key_contract_cuda(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
                              need_reduce: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
-    """Kernel B on the card; one launch for the whole batch, one block per
-    (output limb, ciphertext)."""
+    """Kernel B on the card; one launch for the whole batch, one cluster of
+    blocks per (output limb, ciphertext)."""
     _check_inputs(t_c, t_n, key, t, need_reduce, row_offset)
     lib = _lib()
     *lead, D, n = t_c.shape
@@ -150,7 +154,7 @@ switch_key_contract_cuda.launches = 0
 
 def switch_key_contract(t_c: torch.Tensor, t_n, key: torch.Tensor, t: LimbTables,
                         need_reduce: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
-    """Kernel B for tensors on the card up to n = 16384, the staged
+    """Kernel B for tensors on the card up to n = 32768, the staged
     formulation on the stage kernel above that, the plain version on the CPU
     (or on the card inside ``ops.ntt.plain_on_card()``)."""
     if use_kernels(t_c):

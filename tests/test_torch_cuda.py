@@ -96,6 +96,100 @@ def test_switch_key_kernel_matches_plain(card, diag):
     assert torch.equal(switch_key_contract_cuda(t_c, t_n, key, t, plan.need_reduce), want)
 
 
+def _medium_key_switch(card, level, B, lo, hi, diag, seed):
+    """Inputs of kernel B on decomposition rows [lo, hi) of the N=32768
+    default chain (golden.medium_context) at the given level: B ciphertexts,
+    a key with one decomposition row more than the level has."""
+    ctx = golden.medium_context(card)
+    cd = ctx.first_context_data()
+    for _ in range(level):
+        cd = cd.next_context_data
+    plan = Evaluator(ctx)._plan(cd)
+    t = plan.sel_tables
+    rows = build_limb_tables(15, cd.parms.coeff_modulus[lo:hi], device=card)
+    t_n = _uniform((B, hi - lo, 32768), rows.q, card, seed)
+    t_c = ntt_inverse(t_n, rows)
+    key = _uniform((2, plan.D + 1, t.q.shape[0], 32768), t.q, card, seed + 1)[:, lo:hi]
+    return t_c, (t_n if diag else None), key, t, plan.need_reduce[lo:hi]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("level", [0, 1])
+def test_switch_key_kernel_matches_plain_at_n32768(card, diag, level):
+    """The default 128-bit chain at N=32768: D=15, Rn=16 at the first level
+    (a thread owns 8 coefficients), D=14 under a key of 16 rows at the next."""
+    t_c, t_n, key, t, need = _medium_key_switch(card, level, 1, 0, 15 - level, diag, 3 + level)
+    before = switch_key_contract_cuda.launches
+    got = switch_key_contract_cuda(t_c[0], None if t_n is None else t_n[0], key, t, need)
+    assert switch_key_contract_cuda.launches == before + 1 and got.shape == (2, 16 - level, 32768)
+    assert torch.equal(got, switch_key_contract_plain(t_c[0], None if t_n is None else t_n[0], key, t, need))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diag", [False, True])
+def test_batched_switch_key_kernel_at_n32768_with_row_offset(card, diag):
+    """Three ciphertexts in one launch on rows [4, 11) of the first level's
+    decomposition (a limb rank's share; the diagonal at i == 4 + j)."""
+    t_c, t_n, key, t, need = _medium_key_switch(card, 0, 3, 4, 11, diag, 9)
+    got = switch_key_contract_cuda(t_c, t_n, key, t, need, row_offset=4)
+    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, t, need, row_offset=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [3, 4, 5, 6, 10, 11, 13, 14])
+@pytest.mark.parametrize("diag", [False, True])
+def test_switch_key_kernel_cluster_sizes(card, log_n, diag):
+    """Clusters of 2 (n = 8), 4 (16, 32) and 8 blocks, from chunks smaller
+    than a warp's coefficients to 512 threads of 4 coefficients (n=16384)."""
+    mods = CoeffModulus.create(max(1 << log_n, 1024), [60, 40, 50, 60])
+    ctx_t = build_limb_tables(log_n, mods, device=card)
+    level = build_limb_tables(log_n, mods[:3], device=card)
+    need = torch.tensor([[qj > qi for qi in ctx_t.q.flatten().tolist()] for qj in level.q.flatten().tolist()],
+                        device=card)
+    t_n = _uniform((3, 1 << log_n), level.q, card, log_n)
+    t_c = ntt_inverse(t_n, level)
+    key = _uniform((2, 3, 4, 1 << log_n), ctx_t.q, card, log_n + 1)
+    t_n = t_n if diag else None
+    got = switch_key_contract_cuda(t_c, t_n, key, ctx_t, need)
+    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, ctx_t, need))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [10, 13])
+def test_switch_key_kernel_barrett_guard(card, log_n):
+    """D=66 > 64 at N=1024 and N=8192: the u128 sums are reduced after 64
+    summands inside the cluster's row loop."""
+    n = 1 << log_n
+    mods = CoeffModulus.create(n, [40] * 67)
+    t = build_limb_tables(log_n, mods, device=card)
+    level = build_limb_tables(log_n, mods[:66], device=card)
+    qs = t.q.flatten().tolist()
+    need = torch.tensor([[qj > qi for qi in qs] for qj in qs[:66]], device=card)
+    t_n = _uniform((66, n), level.q, card, 5)
+    t_c = ntt_inverse(t_n, level)
+    key = _uniform((2, 66, 67, n), t.q, card, 6)
+    got = switch_key_contract_cuda(t_c, t_n, key, t, need)
+    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, t, need))
+
+
+@pytest.mark.cuda
+def test_medium_slice_on_card_gives_medium_digest(card):
+    """The N=32768 request on the default chain: one launch of kernel B,
+    none of the stage kernel, the JAX package's digest."""
+    ctx = golden.medium_context(card)
+    d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED)
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, card)
+    a = ciphertext_from_numpy(d1, ctx.first_parms_id, True, 2.0 ** 40, card)
+    b = ciphertext_from_numpy(d2, ctx.first_parms_id, True, 2.0 ** 40, card)
+    ev = Evaluator(ctx)
+    before = (stage_cuda.launches, switch_key_contract_cuda.launches)
+    out = ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk))
+    after = (stage_cuda.launches, switch_key_contract_cuda.launches)
+    assert golden.digest(u64_to_numpy(out.data)) == golden.MEDIUM_DIGEST
+    assert [y - x for x, y in zip(before, after)] == [0, 1]
+
+
 @pytest.mark.cuda
 def test_slice_on_card_gives_golden_digest(card):
     ctx = _context(golden.GOLDEN_N, list(golden.GOLDEN_BITS), card)

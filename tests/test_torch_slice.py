@@ -12,6 +12,11 @@
 (e) the same pipeline at N=65536, bits [60, 40, 40, 60] (the size where the
     card runs every NTT on the four-step stage kernel): the JAX pipeline and
     the port's plain path both give ``golden.LARGE_DIGEST``.
+(f) the same pipeline at N=32768 on the default 128-bit chain
+    (``golden.medium_context``: 16 moduli, D=15, Rn=16, kernel B's largest
+    fused shape on the card): the port's plain path gives
+    ``golden.MEDIUM_DIGEST`` (~10 s); the JAX pipeline's side (~45 s) is
+    marked ``slow``.
 
 A CKKS user's whole computation at N=1024 (keygen to decode) is held
 against the JAX package in ``tests/test_torch_client.py``.
@@ -197,3 +202,31 @@ def test_unported_schemes_raise_not_implemented():
     ct = P.Ciphertext(data, ctx.first_parms_id, False, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ev.multiply(ct, ct)
+
+
+def _medium_args(ctx):
+    d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED)
+    kc0, kc1 = golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)
+    return d1, d2, kc0, kc1
+
+
+def test_port_pipeline_gives_medium_golden_digest_at_n32768():
+    pctx = golden.medium_context("cpu")
+    cd = pctx.first_context_data()
+    assert (cd.parms.poly_modulus_degree, len(cd.coeff_modulus_values)) == (golden.MEDIUM_N, 15)
+    port_out = u64_to_numpy(build_ckks_mult_relin_rescale(pctx)(*(u64_from_numpy(a, "cpu") for a in _medium_args(pctx))))
+    assert port_out.shape == (2, 14, golden.MEDIUM_N)
+    assert golden.digest(port_out) == golden.MEDIUM_DIGEST
+
+
+@pytest.mark.slow
+def test_jax_pipeline_gives_medium_golden_digest_at_n32768():
+    jp = JaxParameters(JaxScheme.CKKS)
+    jp.set_poly_modulus_degree(golden.MEDIUM_N)
+    jp.set_coeff_modulus(JaxCoeffModulus.bfv_default(golden.MEDIUM_N))
+    jctx = JaxContext(jp, True, JaxSecurityLevel.TC128)
+    pctx = golden.medium_context("cpu")
+    assert jctx.first_parms_id == pctx.first_parms_id
+    args = _medium_args(pctx)
+    jax_out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
+    assert golden.digest(jax_out) == golden.MEDIUM_DIGEST

@@ -5,7 +5,9 @@ replaces.
 n=128, the cases of ``tests/test_pallas_switch_key.py``: CKKS and BGV with
 the i == j diagonal, the mixed 60/40 moduli, the BFV no-diagonal case and
 the lower-level key trim (the key carries more decomposition rows than the
-level has limbs).  Key columns are seeded uniform residues: the contraction's
+level has limbs); and the 16 moduli of ``bfv_default(32768)`` (D=15, Rn=16,
+the chain of ``golden.MEDIUM_DIGEST``, whose key switch the card fuses into
+one launch of kernel B), with and without the diagonal.  Key columns are seeded uniform residues: the contraction's
 arithmetic does not depend on how the key was made.  Exact equality.
 """
 
@@ -33,16 +35,18 @@ N = 128
 
 
 def _jax_context(scheme, bits):
+    """``bits``: bit sizes, or the moduli themselves."""
     parms = JaxParameters(scheme)
     parms.set_poly_modulus_degree(N)
-    parms.set_coeff_modulus(JaxCoeffModulus.create(N, bits))
+    parms.set_coeff_modulus(bits if not isinstance(bits[0], int) else JaxCoeffModulus.create(N, bits))
     if scheme in (JaxScheme.BFV, JaxScheme.BGV):
         parms.set_plain_modulus(JaxPlainModulus.batching(N, 17))
     return JaxContext(parms, True, JaxSecurityLevel.NONE)
 
 
-def _case(scheme, bits, lower_level, seed):
-    """Inputs of one contraction, as numpy uint64, plus the JAX tables."""
+def _case(scheme, bits, lower_level, seed, diag=None):
+    """Inputs of one contraction, as numpy uint64, plus the JAX tables;
+    ``diag`` None: the scheme's own (CKKS and BGV substitute the diagonal)."""
     ctx = _jax_context(scheme, bits)
     cd = ctx.first_context_data()
     if lower_level:
@@ -61,7 +65,8 @@ def _case(scheme, bits, lower_level, seed):
     target = rng.integers(0, 1 << 62, (D, N), dtype=np.uint64) % qv
     sel_q = np.array(sel_vals, dtype=np.uint64).reshape(1, 1, -1, 1)
     key = rng.integers(0, 1 << 62, (2, D_key, len(sel_vals), N), dtype=np.uint64) % sel_q
-    diag = scheme in (JaxScheme.CKKS, JaxScheme.BGV)
+    if diag is None:
+        diag = scheme in (JaxScheme.CKKS, JaxScheme.BGV)
     if diag:
         t_c = JU.to_np_u64(jax.jit(lambda v: JNTT.ntt_inverse(v, cd.limb_tables()))(JU.from_np_u64(target)))
         t_n = target
@@ -79,12 +84,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_plain_matches_pallas_kernel(case):
-    scheme, bits, lower = CASES[case]
-    sel_vals, sel_tables, need_reduce, t_c, t_n, key = _case(scheme, bits, lower, seed=len(case))
-    if lower:
-        assert key.shape[1] > t_c.shape[0]  # the key really has extra rows
+def _check_against_pallas(sel_vals, sel_tables, need_reduce, t_c, t_n, key):
     want = switch_key_contract(
         JU.from_np_u64(t_c), None if t_n is None else JU.from_np_u64(t_n), JU.from_np_u64(key),
         JNTT._mxu_tables_for(sel_tables), need_reduce, interpret=True)
@@ -95,6 +95,25 @@ def test_plain_matches_pallas_kernel(case):
         u64_from_numpy(t_c, "cpu"), None if t_n is None else u64_from_numpy(t_n, "cpu"),
         u64_from_numpy(key, "cpu"), tables, torch.from_numpy(need_reduce))
     np.testing.assert_array_equal(u64_to_numpy(got), want)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_pallas_kernel(case):
+    scheme, bits, lower = CASES[case]
+    sel_vals, sel_tables, need_reduce, t_c, t_n, key = _case(scheme, bits, lower, seed=len(case))
+    if lower:
+        assert key.shape[1] > t_c.shape[0]  # the key really has extra rows
+    _check_against_pallas(sel_vals, sel_tables, need_reduce, t_c, t_n, key)
+
+
+@pytest.mark.parametrize("diag", [True, False])
+def test_plain_matches_pallas_kernel_on_the_default_32768_chain(diag):
+    """The 16 moduli of bfv_default(32768) at n=128: D=15, Rn=16, 240 grid
+    steps of the Pallas kernel in interpret mode (about 5 s each)."""
+    moduli = JaxCoeffModulus.bfv_default(32768)
+    sel_vals, sel_tables, need_reduce, t_c, t_n, key = _case(JaxScheme.CKKS, moduli, False, seed=15, diag=diag)
+    assert t_c.shape[0] == 15 and len(sel_vals) == 16 and need_reduce.any() and not need_reduce.all()
+    _check_against_pallas(sel_vals, sel_tables, need_reduce, t_c, t_n, key)
 
 
 def test_guard_every_64_summands():
@@ -122,6 +141,37 @@ def test_guard_every_64_summands():
         for i, qi in enumerate(qs):
             exact = [sum(int(ntt[j, i, x]) * int(key[c, j, i, x]) for j in range(D)) % qi for x in range(n)]
             np.testing.assert_array_equal(got[c, i], np.array(exact, dtype=np.uint64))
+
+
+def test_contract_sends_n_up_to_32768_to_the_kernel(monkeypatch):
+    """On the card, switch_key_contract launches kernel B up to n = 32768
+    (log_n 15), the JAX package's fused range, and the staged formulation
+    above it; the kernel's wrapper takes n = 32768 and refuses 65536."""
+    from seal_tpu_torch.ops import cuda_switch_key as SK
+
+    calls = []
+
+    def fake_kernel(t_c, t_n, key, t, need_reduce, row_offset=0):
+        calls.append(t.log_n)
+        return switch_key_contract_plain(t_c, t_n, key, t, need_reduce, row_offset=row_offset)
+
+    from seal_tpu_torch.numth import get_primes
+
+    monkeypatch.setattr(SK, "use_kernels", lambda x: True)
+    monkeypatch.setattr(SK, "switch_key_contract_cuda", fake_kernel)
+    qs = get_primes(1 << 17, 30, 2)
+    for log_n in (15, 16):
+        n = 1 << log_n
+        tables = build_limb_tables(log_n, [Modulus(v) for v in qs], device="cpu")
+        rng = np.random.default_rng(log_n)
+        t_c = torch.from_numpy(rng.integers(0, min(qs), (1, n), dtype=np.int64))
+        key = torch.from_numpy(rng.integers(0, min(qs), (2, 1, 2, n), dtype=np.int64))
+        need = torch.tensor([[False, False]])
+        got = SK.switch_key_contract(t_c, None, key, tables, need)
+        assert torch.equal(got, switch_key_contract_plain(t_c, None, key, tables, need))
+        with pytest.raises(ValueError, match="CUDA" if log_n == 15 else "n <= 32768"):
+            SK._check_inputs(t_c, None, key, tables, need, 0)
+    assert calls == [15]
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
