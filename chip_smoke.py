@@ -73,7 +73,28 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        card and to ``golden.MEDIUM_DIGEST``, the batch and the baseline
        equal to the sequential outputs, 1 launch of kernel B per request and
        per batch and none of the stage kernel; ms and launches per request,
-       device-busy share and a profiler split.
+       device-busy share and a profiler split;
+10. one step of an encrypted linear layer at N=32768 on the same chain
+   (``golden.linear_layer_step``: multiply_plain -> rotate_vector(1) ->
+   multiply -> relinearize -> rescale_to_next, the inner loop of
+   ``benchmarks/batched_32768.py``):
+   (a) splitmix inputs (``golden.linear_inputs``): one request through
+       ``Evaluator`` equal to the plain path on the card and to
+       ``golden.LINEAR_DIGEST``; 4 requests sequentially and as one
+       ``BatchEvaluator`` batch, the batch equal to the sequential outputs;
+       2 launches of kernel B per request and per batch (the rotation's key
+       switch and the relinearization's), 8 of kernel A (3 per key switch,
+       2 for the rescale), none of the stage kernel; ms per ciphertext
+       sequentially and batched, launches per ciphertext, device-busy share
+       and a profiler split (kernel A, kernel B, the gathers, the rest);
+   (b) real keys from a seeded BLAKE2XB factory: the secret key,
+       ``create_relin_keys()`` and ``create_galois_keys_from_steps([1])``
+       equal to the same calls on the plain path on the card;
+       ``np.linspace(0, 1, N/2)`` encoded at 2^40, encrypted 4 times with
+       the secret key, the step run as one batch, decrypted and decoded
+       within 1e-3 of ``np.roll(v*v, -1) * v``;
+   (c) ``mod_switch_to_next`` then ``rotate_vector(1)`` on the card (kernel
+       B with the key's rows trimmed to the level), equal to the plain path.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -597,6 +618,208 @@ def medium_phase(gen):
     return result
 
 
+def linear_phase():
+    """Phase 10: one step of an encrypted linear layer at N=32768 on the
+    default 128-bit chain, through kernels A and B.  Returns kernel B's and
+    kernel A's numbers of this phase for the kernels' JSON line."""
+    from seal_tpu_torch import CKKSEncoder, Decryptor, Encryptor, KeyGenerator, PRNGType, UniformRandomGeneratorFactory
+    from seal_tpu_torch import golden
+    from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, plaintext_from_numpy,
+                                        relin_keys_from_numpy, u64_to_numpy)
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.modulus import CoeffModulus, SecurityLevel
+    from seal_tpu_torch.ops import ntt as NTT
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda
+    from seal_tpu_torch.params import EncryptionParameters, SchemeType
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+    from seal_tpu_torch.context import SealContext
+
+    step = golden.linear_layer_step
+    requests = 4
+    S = golden.LINEAR_SCALE
+    n = golden.MEDIUM_N
+
+    # ---- (a) splitmix inputs ------------------------------------------------
+    t_a = time.perf_counter()
+    ctx = golden.medium_context()                        # the default device: the card
+    cd = ctx.first_context_data()
+    ct_np, pt_np, g_np, r_np = golden.linear_inputs(ctx)
+    keys = [None] * n
+    keys[golden.LINEAR_GALOIS_ELT >> 1] = g_np
+    gk = galois_keys_from_numpy(keys, ctx.key_parms_id, "cuda")
+    rk = relin_keys_from_numpy([r_np], ctx.key_parms_id, "cuda")
+    pt = plaintext_from_numpy(pt_np, ctx.first_parms_id, S, "cuda")
+    cts = [ciphertext_from_numpy(golden.linear_inputs(ctx, r)[0] if r else ct_np, ctx.first_parms_id, True, S, "cuda")
+           for r in range(requests)]
+    del keys, g_np, r_np
+    torch.cuda.synchronize()
+    ev, bev = Evaluator(ctx), BatchEvaluator(ctx)
+    print(f"[linear] N={n}, {golden.MEDIUM_CHAIN}: splitmix Galois key (element {golden.LINEAR_GALOIS_ELT}), "
+          f"relinearization key, plaintext and {requests} ciphertexts made and copied to the card in "
+          f"{time.perf_counter() - t_a:.1f} s")
+
+    def serve():
+        return [step(ev, c, pt, gk, rk) for c in cts]
+
+    def serve_batch():
+        return step(bev, CiphertextBatch.from_ciphertexts(cts), pt, gk, rk)
+
+    groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel", "gathers (index_select)": "indexSelect"}
+
+    def counted(fn):
+        """fn() with the three counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"ntt": ntt_cuda.launches, "switch_key": switch_key_contract_cuda.launches,
+                     "four_step_stage": stage_cuda.launches}
+
+    def measure(label, fn):
+        """Warm-up, one counted run, 3 timed runs, one profiled run; ms per
+        ciphertext and the profiler's split."""
+        fn()
+        outs, launches = counted(fn)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / requests)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, split = device_split(prof, groups)
+        n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if by_name:
+            busy = sum(by_name.values()) / 1e3
+            prof_line = (f"under the profiler {n_dev / requests:.1f} device launches per ciphertext, device busy "
+                         f"{busy / requests:.3f} ms per ciphertext, {100 * busy / wall_ms:.1f}% of wall {wall_ms:.3f} "
+                         f"ms; per ciphertext " + ", ".join(f"{g} {v / 1e3 / requests:.4f} ms" for g, v in split.items())
+                         + f", other kernels (plain PyTorch elementwise arithmetic, copies) "
+                         f"{(busy - sum(split.values()) / 1e3) / requests:.3f} ms")
+        else:
+            busy, prof_line = None, "the profiler recorded no device time: not measured"
+        print(f"[linear] {label}: launches for {requests} ciphertexts: kernel A {launches['ntt']}, kernel B "
+              f"{launches['switch_key']}, stage kernel {launches['four_step_stage']}; ms per ciphertext over 3 runs "
+              f"{', '.join(f'{t:.3f}' for t in times)} (median {sorted(times)[1]:.3f}); {prof_line}")
+        return outs, launches, sorted(times)[1], busy
+
+    with NTT.plain_on_card():
+        ref0 = step(ev, cts[0], pt, gk, rk)
+    one, one_launches = counted(lambda: step(ev, cts[0], pt, gk, rk))
+    check(torch.equal(one.data, ref0.data), "linear step: request 0 differs from the plain path on the card")
+    check(tuple(one.data.shape) == (2, len(cd.coeff_modulus_values) - 1, n)
+          and one.parms_id == cd.next_context_data.parms_id and one.scale == S ** 3 / cd.coeff_modulus_values[-1],
+          "linear step: wrong shape, level or scale")
+    dig = golden.digest(u64_to_numpy(one.data))
+    check(dig == golden.LINEAR_DIGEST, f"linear step: N={n} digest mismatch: {dig}")
+    # per request: kernel B for the rotation's and the relinearization's key
+    # switch; kernel A three times per key switch (the inverse NTT of the
+    # target, the inverse NTT mod the special prime, the tail's NTT) and twice
+    # for the rescale (the inverse NTT mod q_last, the NTT of the rest)
+    check(one_launches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0},
+          f"linear step: one request launched {one_launches}; expected 8 of kernel A, 2 of kernel B, 0 stage")
+    outs, launches, seq_ms, seq_busy = measure("sequential", serve)
+    check(launches == {"ntt": 8 * requests, "switch_key": 2 * requests, "four_step_stage": 0},
+          f"linear step: {requests} sequential requests launched {launches}")
+    check(torch.equal(outs[0].data, one.data), "linear step: sequential request 0 differs from the single run")
+    batch, blaunches, batch_ms, batch_busy = measure(f"one batch of {requests}", serve_batch)
+    check(blaunches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0},
+          f"linear step: the batch launched {blaunches}; expected 8 of kernel A, 2 of kernel B, 0 stage")
+    for r in range(requests):
+        check(torch.equal(batch.data[r], outs[r].data), f"linear step: batched request {r} differs from the sequential one")
+    print(f"[linear] (a) {requests} requests of multiply_plain -> rotate_vector(1) -> multiply -> relinearize -> "
+          f"rescale_to_next: request 0 equal to the plain path on the card and to the JAX package's N={n} digest; the "
+          f"batch equal to the sequential outputs; kernel B 2 launches per request and 2 per batch, kernel A 8 per "
+          f"request and 8 per batch, no stage-kernel launch; batched: {batch_ms:.3f} ms per ciphertext (the port's "
+          f"counterpart of ckks_n32768_batched_linear_layer_us_per_ct: {batch_ms * 1e3:.1f} us per ciphertext), "
+          f"sequential {seq_ms:.3f} ms per ciphertext; {time.perf_counter() - t_a:.1f} s")
+    del outs, batch, ref0
+
+    # ---- (c) a rotation at the next level ----------------------------------
+    t_c = time.perf_counter()
+    low = ev.mod_switch_to_next(cts[0])
+    check(low.data.is_contiguous(), "mod_switch_to_next left non-contiguous data")
+    rot, rot_launches = counted(lambda: ev.rotate_vector(low, 1, gk))
+    with NTT.plain_on_card():
+        rot_ref = ev.rotate_vector(ev.mod_switch_to_next(cts[0]), 1, gk)
+    check(torch.equal(rot.data, rot_ref.data), "rotation after mod_switch_to_next differs from the plain path")
+    check(rot_launches == {"ntt": 3, "switch_key": 1, "four_step_stage": 0},
+          f"rotation after mod_switch_to_next launched {rot_launches}")
+    print(f"[linear] (c) mod_switch_to_next then rotate_vector(1) (D={len(low.data[0])}, the key's rows trimmed from "
+          f"{gk.key(golden.LINEAR_GALOIS_ELT)['c0'].shape[0]}): equal to the plain path on the card; kernel B 1 launch, "
+          f"kernel A 3; {time.perf_counter() - t_c:.1f} s")
+    del ev, bev, gk, rk, cts, pt, low, rot, rot_ref
+    torch.cuda.empty_cache()
+
+    # ---- (b) real keys ------------------------------------------------------
+    t_b = time.perf_counter()
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, (11, 12, 13, 14, 15, 16, 17, 18)))
+    rctx = SealContext(parms, True, SecurityLevel.TC128)
+
+    def keygen():
+        kg = KeyGenerator(rctx)
+        return kg.secret_key, kg.create_relin_keys(), kg.create_galois_keys_from_steps([1])
+
+    with NTT.plain_on_card():
+        ref_keys = keygen()
+    torch.cuda.synchronize()
+    t_k = time.perf_counter()
+    sk, rrk, rgk = keygen()
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t_k
+    elt = golden.LINEAR_GALOIS_ELT
+    pairs = [("secret key", sk.data, ref_keys[0].data),
+             ("relin key c0", rrk.key(2)["c0"], ref_keys[1].key(2)["c0"]),
+             ("relin key c1", rrk.key(2)["c1"], ref_keys[1].key(2)["c1"]),
+             ("Galois key c0", rgk.key(elt)["c0"], ref_keys[2].key(elt)["c0"]),
+             ("Galois key c1", rgk.key(elt)["c1"], ref_keys[2].key(elt)["c1"])]
+    for name, got, want in pairs:
+        check(torch.equal(got, want), f"real keys: {name} differs from the plain path on the card")
+    check(sum(k is not None for k in rgk.keys) == 1 and len(rgk.keys) == n, "real keys: wrong Galois key set")
+    del ref_keys, pairs
+    v = np.linspace(0.0, 1.0, n // 2)
+    enc = CKKSEncoder(rctx)
+    pv = enc.encode(v, S)
+    sym = Encryptor(rctx, secret_key=sk)
+    rcts = [sym.encrypt_symmetric(pv) for _ in range(requests)]
+    rbev = BatchEvaluator(rctx)
+    rbatch = CiphertextBatch.from_ciphertexts(rcts)
+    rout, rlaunches = counted(lambda: step(rbev, rbatch, pv, rgk, rrk))
+    with NTT.plain_on_card():
+        rref = step(rbev, rbatch, pv, rgk, rrk)
+    check(torch.equal(rout.data, rref.data), "real keys: the batch differs from the plain path on the card")
+    check(rlaunches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0}, f"real keys: the batch launched {rlaunches}")
+    dec = Decryptor(rctx, sk)
+    model = np.roll(v * v, -1) * v
+    worst = 0.0
+    for r in range(requests):
+        got = enc.decode(dec.decrypt(rout[r]))
+        check(got.shape == (n // 2,) and np.isfinite(got).all(), f"real keys: decoded request {r} is malformed")
+        err = float(np.max(np.abs(got.real - model)))
+        check(err < 1e-3, f"real keys: decoded request {r} is {err} from np.roll(v*v, -1) * v")
+        worst = max(worst, err)
+    print(f"[linear] (b) real keys (seeded BLAKE2XB): the secret key, create_relin_keys() and "
+          f"create_galois_keys_from_steps([1]) equal to the plain path on the card (keygen {keygen_s:.2f} s on the "
+          f"card); {requests} encryptions of linspace(0, 1, {n // 2}) at 2^40 through the step as one batch (kernel B "
+          f"{rlaunches['switch_key']}, kernel A {rlaunches['ntt']}), equal to the plain path, decoded within "
+          f"{worst:.3e} of np.roll(v*v, -1) * v (bound 1e-3); {time.perf_counter() - t_b:.1f} s")
+    del rctx, rbev, rbatch, rout, rref, rcts, sk, rrk, rgk
+    torch.cuda.empty_cache()
+    return {"launches_per_request": one_launches["switch_key"], "launches_per_batch": blaunches["switch_key"],
+            "ms_per_ct_sequential": seq_ms, "ms_per_ct_batched": batch_ms,
+            "device_busy_ms_per_ct_batched": None if batch_busy is None else batch_busy / requests,
+            "ntt_launches_per_request": one_launches["ntt"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1060,6 +1283,11 @@ def main():
     # ---- phase 9: the N=32768 request on the default chain ---------------
     sk_medium = medium_phase(gen)
 
+    # ---- phase 10: the N=32768 encrypted linear-layer step ----------------
+    t_linear = time.time()
+    linear = linear_phase()
+    print(f"[linear] phase 10 in {time.time() - t_linear:.1f} s")
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
@@ -1070,7 +1298,7 @@ def main():
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
          "max_abs_err": max(max_err["switch_key"], sk_medium["max_abs_err"]), "ms": sk_main["ms"],
          "plain_ms": sk_main["plain_ms"], "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"],
-         "library_ms": None, "n32768": sk_medium},
+         "library_ms": None, "n32768": sk_medium, "linear_layer": linear},
         {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],

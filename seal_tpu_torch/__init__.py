@@ -1,10 +1,10 @@
 """seal-tpu-torch: the seal-tpu server path in PyTorch, with CUDA kernels.
 
 A port of ``seal_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.  It
-covers a CKKS user's whole computation: keygen, encode, encrypt, the
-server's ciphertext x ciphertext multiply, relinearize and rescale
-(``pipeline.build_ckks_mult_relin_rescale``), decrypt and decode, at every
-ring size up to N=131072.  Three hand-written Hopper kernels carry it: the
+covers a CKKS user's whole computation: keygen (with Galois keys), encode,
+encrypt, the whole CKKS evaluator (multiply, relinearize, rescale, the
+plaintext ops, modulus switching, rotations and conjugation), decrypt and
+decode, at every ring size up to N=131072.  Three hand-written Hopper kernels carry it: the
 negacyclic NTT up to N=32768 (``csrc/ntt.cu``), the fused key-switch
 contraction up to N=32768 (``csrc/switch_key.cu``) and the four-step stage
 that serves every NTT above N=32768 (``csrc/four_step.cu``); a fourth, the
@@ -18,7 +18,7 @@ runs the plain PyTorch versions on the CPU.
 from .modulus import CoeffModulus, Modulus, SecurityLevel
 from .params import EncryptionParameters, ParmsId, PARMS_ID_ZERO, SchemeType
 from .context import SealContext, EncryptionParameterQualifiers, ErrorType
-from .data import Ciphertext, KSwitchKeys, Plaintext, PublicKey, RelinKeys, SecretKey
+from .data import Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, PublicKey, RelinKeys, SecretKey
 from .evaluator import Evaluator
 from .keygen import KeyGenerator
 from .encryptor import Encryptor
@@ -30,7 +30,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "CKKSEncoder", "Ciphertext", "CoeffModulus", "Decryptor", "EncryptionParameterQualifiers",
-    "EncryptionParameters", "Encryptor", "ErrorType", "Evaluator", "KSwitchKeys", "KeyGenerator",
+    "EncryptionParameters", "Encryptor", "ErrorType", "Evaluator", "GaloisKeys", "KSwitchKeys", "KeyGenerator",
     "Modulus", "PARMS_ID_ZERO", "PRNGType", "ParmsId", "Plaintext", "PublicKey", "RelinKeys",
     "SchemeType", "SealContext", "SecretKey", "SecurityLevel", "UniformRandomGeneratorFactory",
 ]

@@ -1,16 +1,18 @@
 """The ring bodies of the CKKS server ops, on local tensors.
 
-The dyadic convolution of ``multiply`` and the two halves of the key switch
+The dyadic convolution of ``multiply``, the two halves of the key switch
 (the contraction over decomposition limbs, and the tail that switches the
-special prime away), with the per-level device constants they read
+special prime away) and the Galois body of ``apply_galois`` built from
+them, with the per-level device constants they read
 (:class:`KeySwitchPlan`).  Each body takes (..., size, k, n) data on one
 device; the limb range [lo, hi) it is given lets a rank of a mesh run it on
 its own limbs.  ``evaluator.py`` runs them on whole ciphertexts, the mesh
 bodies (``parallel/sharded.py``) on every rank's shard.
 
 On the card the NTT sites and the contraction launch the hand-written
-kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the rest is
-elementwise mod-q arithmetic in plain PyTorch.
+kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois
+permutation is one ``index_select``, and the rest is elementwise mod-q
+arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from .context import ContextData, SealContext
 from .ntt_tables import LimbTables
 from .ops import ntt as NTT
+from .ops import poly as P
 from .ops import u64 as U
 from .ops.cuda_switch_key import switch_key_contract
 from .ops.rns import _c, _cshoup, _ratio, slice_limbs, take_limbs
@@ -108,13 +111,14 @@ def key_switch_contract(plan: KeySwitchPlan, target: torch.Tensor, key_c0: torch
     """The key-switch sum over decomposition limbs [lo, hi): ``target``
     (..., hi - lo, n) holds those limbs in NTT form, ``key_c0``/``key_c1``
     their key rows (hi - lo, k_key, n).  Returns (..., 2, Rn, n) < q_i."""
-    t_target = NTT.inverse(target.contiguous(), plan.level(lo, hi))     # (..., D, n) < q
+    target = target.contiguous()
+    t_target = NTT.inverse(target, plan.level(lo, hi))                   # (..., D, n) < q
 
     # Select key columns (D', k_key, n) -> (D', Rn, n) and stack both
     # components: (2, D', Rn, n); the contraction uses rows [0, hi - lo).
     kc = torch.stack([key_c0.index_select(1, plan.key_columns),
                       key_c1.index_select(1, plan.key_columns)])
-    return switch_key_contract(t_target, target.contiguous(), kc, plan.sel_tables,
+    return switch_key_contract(t_target, target, kc, plan.sel_tables,
                                plan.need_reduce[lo:hi], row_offset=lo)
 
 
@@ -123,7 +127,9 @@ def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tens
     """Switch the special prime away and add into the ciphertext
     (evaluator.cpp:2806-2865), on limbs [lo, hi): ``prod`` is the whole
     sum (..., 2, Rn, n), ``ct_data`` (..., size, hi - lo, n) those limbs
-    of the ciphertext."""
+    of the ciphertext.  With size 1 the ciphertext's c1 is zero, as after
+    a Galois permutation whose c1 was switched away: the output's c1 is
+    the switched pair's alone."""
     D = plan.D
     dq = plan.dq[lo:hi]
     t_last = prod[..., D:, :].contiguous()                              # (..., 2, 1, n) NTT mod qk
@@ -135,6 +141,23 @@ def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tens
     t_ntt = NTT.forward(t_ntt, plan.dec(lo, hi), lazy=True)             # < 4q_i
     new = U.mul_mod_shoup(rest + plan.four_q[lo:hi] - t_ntt, plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
 
+    if ct_data.shape[-3] == 1:
+        return torch.cat([U.add_mod(new[..., :1, :, :], ct_data, dq), new[..., 1:, :, :]], dim=-3)
     out = ct_data.clone()
     out[..., :2, :, :] = U.add_mod(new, ct_data[..., :2, :, :], dq)
     return out
+
+
+def galois(plan: KeySwitchPlan, data: torch.Tensor, table: torch.Tensor, key_c0: torch.Tensor,
+           key_c1: torch.Tensor) -> torch.Tensor:
+    """The Galois automorphism of NTT-form (..., 2, k, n) data and the key
+    switch of its permuted c1 (evaluator.cpp:2384-2470): both polys are
+    permuted by one gather with ``table`` (the element's NTT-domain index
+    tensor on the data's device), the key switch contracts the permuted c1
+    with the key's first D rows, and the tail adds the result into
+    (permuted c0, 0).  With a leading batch axis kernel B takes the batch
+    on its grid, one launch for all of it."""
+    D = plan.D
+    perm = P.apply_galois_ntt(data, table)
+    prod = key_switch_contract(plan, perm[..., 1, :, :], key_c0[:D], key_c1[:D], 0, D)
+    return key_switch_tail(plan, prod, perm[..., :1, :, :], 0, D)

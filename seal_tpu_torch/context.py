@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import numth
@@ -34,6 +35,7 @@ from .modulus import (
     MOD_BIT_COUNT_MIN,
     SecurityLevel,
 )
+from .ops.poly import get_elt_from_step, get_elts_all, make_galois_table_coeff, make_galois_table_ntt
 from .ntt_tables import HostNTTTables, LimbTables, build_limb_tables, cached_host_ntt_tables
 from .params import EncryptionParameters, ParmsId, PARMS_ID_ZERO, SchemeType
 from .rns_host import HostRNSBase, HostRNSTool
@@ -97,6 +99,54 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+class GaloisTool:
+    """Automorphism helper with cached permutation tables (``util/galois.cpp``).
+
+    The tables are kept once per Galois element as host arrays, and the
+    NTT-domain one once per (element, device) as the index tensor the
+    gather takes, so a rotation copies no table to the card.
+    """
+
+    GENERATOR = 3
+
+    def __init__(self, log_n: int):
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self._ntt_tables: Dict[int, np.ndarray] = {}
+        self._coeff_tables: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._ntt_index: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def get_elt_from_step(self, step: int) -> int:
+        return get_elt_from_step(step, self.n)
+
+    def get_elts_from_steps(self, steps: Sequence[int]) -> List[int]:
+        return [self.get_elt_from_step(s) for s in steps]
+
+    def get_elts_all(self) -> List[int]:
+        return get_elts_all(self.n)
+
+    @staticmethod
+    def get_index_from_elt(galois_elt: int) -> int:
+        return (galois_elt - 1) >> 1
+
+    def ntt_table(self, galois_elt: int) -> np.ndarray:
+        if galois_elt not in self._ntt_tables:
+            self._ntt_tables[galois_elt] = make_galois_table_ntt(self.n, galois_elt)
+        return self._ntt_tables[galois_elt]
+
+    def coeff_table(self, galois_elt: int) -> Tuple[np.ndarray, np.ndarray]:
+        if galois_elt not in self._coeff_tables:
+            self._coeff_tables[galois_elt] = make_galois_table_coeff(self.n, galois_elt)
+        return self._coeff_tables[galois_elt]
+
+    def ntt_index(self, galois_elt: int, device) -> torch.Tensor:
+        """The NTT-domain table as an int64 index tensor on ``device``."""
+        key = (galois_elt, torch.device(device))
+        if key not in self._ntt_index:
+            self._ntt_index[key] = torch.from_numpy(self.ntt_table(galois_elt).astype(np.int64)).to(key[1])
+        return self._ntt_index[key]
+
+
 class ContextData:
     """Per-level immutable precompute bundle (cf. ``SEALContext::ContextData``)."""
 
@@ -112,6 +162,11 @@ class ContextData:
         self.base_q: Optional[HostRNSBase] = None
         self.ntt_tables: List[HostNTTTables] = []
         self.rns_tool: Optional[HostRNSTool] = None
+        self.galois_tool: Optional[GaloisTool] = None
+        # the lift of a coefficient plaintext into base q (context.cpp:332-404)
+        self.plain_upper_half_threshold: int = 0
+        self.plain_upper_half_increment: List[int] = []
+        self.upper_half_threshold: int = 0
         self._limb_tables: Dict[torch.device, LimbTables] = {}
 
     @property
@@ -278,7 +333,8 @@ class SealContext:
 
         if parms.scheme in (SchemeType.BFV, SchemeType.BGV):
             # The plain-modulus checks of context.cpp:285-330 hold for both
-            # schemes; their constants arrive with the BFV and BGV slices
+            # schemes, and so does the plaintext lift; the schemes' other
+            # constants arrive with the BFV and BGV slices
             # (ROADMAP.md queue 1, items 9 and 10).
             t = plain_modulus.value
             if t >> PLAIN_MOD_BIT_COUNT_MAX or not (t >> (PLAIN_MOD_BIT_COUNT_MIN - 1)):
@@ -293,12 +349,23 @@ class SealContext:
                 return cd
             q.using_batching = True
             q.using_fast_plain_lift = all(m.value > t for m in coeff_modulus)
+            cd.plain_upper_half_threshold = (t + 1) >> 1
+            if q.using_fast_plain_lift:
+                cd.plain_upper_half_increment = [m.value - t for m in coeff_modulus]
+            else:
+                cd.plain_upper_half_increment = cd.base_q.decompose(cd.total_coeff_modulus - t)
         elif parms.scheme == SchemeType.CKKS:
             if not plain_modulus.is_zero:
                 q.parameter_error = ErrorType.INVALID_PLAIN_MODULUS_NONZERO
                 return cd
             q.using_batching = True
             q.using_fast_plain_lift = False
+            cd.plain_upper_half_threshold = 1 << 63
+            # plain_upper_half_increment_i = (-2^64) mod q_i (context.cpp:395-404)
+            cd.plain_upper_half_increment = [
+                ((1 << 63) % m.value) * (m.value - 2) % m.value for m in coeff_modulus
+            ]
+            cd.upper_half_threshold = (cd.total_coeff_modulus + 1) >> 1
         else:
             q.parameter_error = ErrorType.INVALID_SCHEME
             return cd
@@ -312,4 +379,5 @@ class SealContext:
         q.using_descending_modulus_chain = all(
             coeff_modulus[i].value > coeff_modulus[i + 1].value for i in range(len(coeff_modulus) - 1)
         )
+        cd.galois_tool = GaloisTool(log_n)
         return cd

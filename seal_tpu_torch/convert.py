@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .data import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
+from .data import Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, PublicKey, RelinKeys, SecretKey
 from .ntt_tables import u64_tensor
 from .params import ParmsId
 from .random import PRNGType, UniformRandomGeneratorFactory
@@ -44,25 +44,46 @@ def ciphertext_to_numpy(ct: Ciphertext) -> Tuple[np.ndarray, ParmsId, bool, floa
     return u64_to_numpy(ct.data), ct.parms_id, ct.is_ntt_form, ct.scale
 
 
-def relin_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
-                          parms_id: ParmsId, device) -> RelinKeys:
-    """Per key power (index = power - 2): None or (c0, c1), each (D, k_key, n)."""
-    rk = RelinKeys()
-    rk.parms_id = tuple(parms_id)
+KeyList = List[Optional[Tuple[np.ndarray, np.ndarray]]]
+
+
+def _kswitch_keys_from_numpy(out: KSwitchKeys, keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
+                             parms_id: ParmsId, device) -> KSwitchKeys:
+    out.parms_id = tuple(parms_id)
     for entry in keys:
         if entry is None:
-            rk.keys.append(None)
+            out.keys.append(None)
             continue
         c0, c1 = entry
         if np.shape(c0) != np.shape(c1) or np.ndim(c0) != 3:
             raise ValueError("key components must both have shape (D, k_key, n)")
-        rk.keys.append({"c0": u64_from_numpy(c0, device), "c1": u64_from_numpy(c1, device)})
-    return rk
+        out.keys.append({"c0": u64_from_numpy(c0, device), "c1": u64_from_numpy(c1, device)})
+    return out
 
 
-def relin_keys_to_numpy(rk: RelinKeys) -> Tuple[List[Optional[Tuple[np.ndarray, np.ndarray]]], ParmsId]:
-    keys = [None if k is None else (u64_to_numpy(k["c0"]), u64_to_numpy(k["c1"])) for k in rk.keys]
-    return keys, rk.parms_id
+def _kswitch_keys_to_numpy(keys: KSwitchKeys) -> Tuple[KeyList, ParmsId]:
+    return [None if k is None else (u64_to_numpy(k["c0"]), u64_to_numpy(k["c1"])) for k in keys.keys], keys.parms_id
+
+
+def relin_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
+                          parms_id: ParmsId, device) -> RelinKeys:
+    """Per key power (index = power - 2): None or (c0, c1), each (D, k_key, n)."""
+    return _kswitch_keys_from_numpy(RelinKeys(), keys, parms_id, device)
+
+
+def relin_keys_to_numpy(rk: RelinKeys) -> Tuple[KeyList, ParmsId]:
+    return _kswitch_keys_to_numpy(rk)
+
+
+def galois_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
+                           parms_id: ParmsId, device) -> GaloisKeys:
+    """Per Galois element (index = (elt - 1) / 2, n entries as the wire
+    format has them): None or (c0, c1), each (D, k_key, n)."""
+    return _kswitch_keys_from_numpy(GaloisKeys(), keys, parms_id, device)
+
+
+def galois_keys_to_numpy(gk: GaloisKeys) -> Tuple[KeyList, ParmsId]:
+    return _kswitch_keys_to_numpy(gk)
 
 
 def secret_key_from_numpy(data: np.ndarray, parms_id: ParmsId, device) -> SecretKey:

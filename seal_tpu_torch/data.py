@@ -5,33 +5,52 @@ Port of ``seal_tpu/data.py`` (counterparts of ``plaintext.h`` /
 ciphertext is one int64 tensor of shape (size, k, n), layout
 [poly][rns_limb][coeff] as in ``ciphertext.h:728-742``, plus host metadata;
 key-switching keys are stacked over the decomposition axis, each component
-(D, k_key, n).  Galois keys arrive with rotations (ROADMAP.md queue 1,
-item 8).
+(D, k_key, n).  A plaintext is either a coefficient polynomial on the host
+or an RNS polynomial in NTT form on the device.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .params import ParmsId, PARMS_ID_ZERO
 
 
 class Plaintext:
-    """An RNS polynomial in NTT form tied to a context level: an int64
-    (k, n) tensor on the context's device (cf. ``plaintext.h:796-802``).
-    The mod-t coefficient form of BFV and BGV arrives with those schemes
-    (ROADMAP.md queue 1, items 9 and 10)."""
+    """Either a coefficient polynomial (parms_id zero, a host numpy uint64
+    array) or an RNS polynomial in NTT form tied to a context level (an
+    int64 (k, n) tensor on the context's device), cf. ``plaintext.h:796-802``."""
 
-    def __init__(self):
+    def __init__(self, coeff_count: int = 0):
         self.parms_id: ParmsId = PARMS_ID_ZERO
         self.scale: float = 1.0
+        self.coeff_data: np.ndarray = np.zeros(coeff_count, dtype=np.uint64)
         self.rns_data: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_coeffs(cls, coeffs) -> "Plaintext":
+        p = cls()
+        p.coeff_data = np.asarray(coeffs, dtype=np.uint64).copy()
+        return p
 
     @property
     def is_ntt_form(self) -> bool:
         return self.parms_id != PARMS_ID_ZERO
+
+    def significant_coeff_count(self) -> int:
+        nz = np.nonzero(self.coeff_data)[0]
+        return int(nz[-1]) + 1 if len(nz) else 0
+
+    def copy(self) -> "Plaintext":
+        p = Plaintext()
+        p.parms_id = self.parms_id
+        p.scale = self.scale
+        p.coeff_data = self.coeff_data.copy()
+        p.rns_data = self.rns_data
+        return p
 
 
 class Ciphertext:
@@ -128,3 +147,20 @@ class RelinKeys(KSwitchKeys):
 
     def key(self, key_power: int) -> dict:
         return self.keys[self.get_index(key_power)]
+
+
+class GaloisKeys(KSwitchKeys):
+    """Galois keys: index = (galois_elt - 1) / 2 (``galoiskeys.h:48``)."""
+
+    @staticmethod
+    def get_index(galois_elt: int) -> int:
+        if not (galois_elt & 1):
+            raise ValueError("galois_elt is not valid")
+        return (galois_elt - 1) >> 1
+
+    def has_key(self, galois_elt: int) -> bool:
+        i = self.get_index(galois_elt)
+        return i < len(self.keys) and self.keys[i] is not None
+
+    def key(self, galois_elt: int) -> dict:
+        return self.keys[self.get_index(galois_elt)]

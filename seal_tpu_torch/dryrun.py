@@ -12,7 +12,7 @@ import torch
 
 from . import golden, numth
 from .context import SealContext
-from .convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_from_numpy
+from .convert import ciphertext_from_numpy, galois_keys_from_numpy, relin_keys_from_numpy, u64_from_numpy
 from .evaluator import Evaluator
 from .modulus import CoeffModulus, Modulus, SecurityLevel
 from .ntt_tables import build_four_step_tables, build_limb_tables
@@ -29,12 +29,16 @@ def _check(ok: bool, what: str) -> None:
 
 
 def _batched_step(ctx: SealContext, hem: HEMesh, batch: int) -> None:
-    """multiply -> relinearize -> rescale_to_next over ``batch`` seeded
-    requests, sharded over ``hem``, against the unsharded batch and the
-    single-ciphertext evaluator."""
+    """multiply -> relinearize -> rescale_to_next, and a rotation by one step
+    (Galois element 3), over ``batch`` seeded requests, sharded over
+    ``hem``, against the unsharded batch and the single-ciphertext
+    evaluator."""
     device = ctx.device
     kc0, kc1 = golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)
     rk = relin_keys_from_numpy([(kc0, kc1)], ctx.key_parms_id, device)
+    galois = [None] * ctx.key_context_data().parms.poly_modulus_degree
+    galois[golden.LINEAR_GALOIS_ELT >> 1] = golden.galois_key_inputs(ctx, golden.LINEAR_GALOIS_SEED)
+    gk = galois_keys_from_numpy(galois, ctx.key_parms_id, device)
     pairs = []
     for r in range(batch):
         d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)
@@ -49,11 +53,16 @@ def _batched_step(ctx: SealContext, hem: HEMesh, batch: int) -> None:
     got = step(sharded, sharded.shard(b1), sharded.shard(b2)).unshard()
     want = step(BatchEvaluator(ctx), b1, b2)
     _check(torch.equal(got.data, want.data), f"the batch on the {hem.mesh.shape} mesh differs from the unsharded batch")
+    rot = sharded.apply_galois(sharded.shard(b1), golden.LINEAR_GALOIS_ELT, gk).unshard()
+    _check(torch.equal(rot.data, BatchEvaluator(ctx).apply_galois(b1, golden.LINEAR_GALOIS_ELT, gk).data),
+           f"the rotation on the {hem.mesh.shape} mesh differs from the unsharded batch")
     ev = Evaluator(ctx)
     for r, (a, b) in enumerate(pairs):
         single = ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk))
         _check(torch.equal(got.data[r], single.data) and got.scale == single.scale,
                f"request {r} of the batch differs from the single-ciphertext evaluator")
+        _check(torch.equal(rot.data[r], ev.rotate_vector(a, 1, gk).data),
+               f"rotated request {r} of the batch differs from the single-ciphertext evaluator")
 
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> None:
@@ -63,21 +72,22 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> None
     8`` for 8 ranks on one card, or ``["cpu"] * 8``); without it each rank
     is a card of its own.  Three parts, each raising on a mismatch:
 
-    1. the batched CKKS step (multiply -> relinearize -> rescale_to_next) of
-       2 x (data ranks) seeded requests at N=64, bits [40, 30, 30, 30, 40],
-       on a (n/2, 2) (data, limb) mesh, or (n, 1) for odd n, equal to the
+    1. the batched CKKS step (multiply -> relinearize -> rescale_to_next)
+       and a rotation by one step (apply_galois, element 3) of 2 x (data
+       ranks) seeded requests at N=64, bits [40, 30, 30, 30, 40], on a
+       (n/2, 2) (data, limb) mesh, or (n, 1) for odd n, equal to the
        unsharded batch and to the single-ciphertext evaluator;
     2. the distributed NTT round trip at N=8192 with two 40-bit primes over
        a flat limb mesh of all the ranks (their number must divide n1 = 64),
        the forward transform equal to the single-device transform
        (``ops.ntt.forward``: kernel A on a card; the distributed one runs
        the stage and corner-turn kernels there);
-    3. for n >= 8 and n % 4 == 0, the batched step on the (host=2, data,
-       limb=2) mesh with replicated keys.
+    3. for n >= 8 and n % 4 == 0, the batched step and the rotation on the
+       (host=2, data, limb=2) mesh with replicated keys.
 
-    The JAX twin also runs a sharded BFV multiply and a Galois rotation;
-    those wait for BFV and for Galois keys (ROADMAP.md queue 1, items 9
-    and 8).
+    The JAX twin also runs a sharded BFV multiply, which waits for BFV
+    (ROADMAP.md queue 1, item 9); its rotation is a BFV one, and the CKKS
+    rotation above stands for it.
     """
     limb = 2 if n_devices % 2 == 0 else 1
     hem = make_mesh(n_devices, limb_parallel=limb, devices=devices)

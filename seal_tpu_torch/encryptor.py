@@ -1,20 +1,51 @@
-"""Encryptor: public- and secret-key encryption, CKKS.
+"""Encryptor: public- and secret-key encryption, CKKS, and the plaintext lift.
 
 Port of the CKKS part of ``seal_tpu/encryptor.py`` (counterpart of
 ``encryptor.{h,cpp}``): an encryption of zero at the plaintext's level with
-the NTT-form plaintext added into c0.  BFV's scaling variant and BGV's
-plaintext lift raise ``NotImplementedError`` naming their ROADMAP.md items.
+the NTT-form plaintext added into c0.  :func:`bgv_lift_plain` lifts a
+coefficient plaintext into base q in NTT form, for the evaluator's
+plaintext paths.  Encrypting a BFV or BGV plaintext raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from .context import SealContext
+import numpy as np
+import torch
+
+from .context import ContextData, SealContext
 from .data import Ciphertext, Plaintext, PublicKey, SecretKey
+from .ntt_tables import u64_tensor
 from .params import ParmsId, SchemeType, not_ported
+from .ops import ntt as NTT
 from .ops import u64 as U
 from .rlwe import encrypt_zero_asymmetric, encrypt_zero_symmetric
+
+
+def bgv_lift_plain(plain: Plaintext, cd: ContextData) -> torch.Tensor:
+    """Lift a coefficient plaintext into RNS base q and NTT-transform it:
+    (k, n) int64 on the context's device.  A coefficient at or above
+    ``plain_upper_half_threshold`` stands for a negative value and is
+    lifted by ``plain_upper_half_increment`` (fast lift) or by Q - t.  The
+    lift runs in numpy on the host, the NTT on the device."""
+    n = cd.parms.poly_modulus_degree
+    qv = cd.coeff_modulus_values
+    m = np.zeros(n, dtype=np.uint64)
+    m[: len(plain.coeff_data)] = plain.coeff_data
+    big = m >= np.uint64(cd.plain_upper_half_threshold)
+    out = np.zeros((len(qv), n), dtype=np.uint64)
+    if cd.qualifiers.using_fast_plain_lift:
+        for i, inc in enumerate(cd.plain_upper_half_increment):
+            out[i] = np.where(big, m + np.uint64(inc), m)
+    else:
+        # (v + Q - t) mod q_i, exactly, in uint64: every residue stays below 2^62
+        total_inc = cd.total_coeff_modulus - cd.parms.plain_modulus.value
+        for i, q in enumerate(qv):
+            r = m % np.uint64(q)
+            out[i] = np.where(big, (r + np.uint64(total_inc % q)) % np.uint64(q), r)
+    return NTT.forward(u64_tensor(out, cd.device), cd.limb_tables())
 
 
 class Encryptor:
@@ -51,9 +82,15 @@ class Encryptor:
         if self._public_key is None:
             raise ValueError("public key is not set")
         if cd.chain_index < self.context.first_context_data().chain_index:
-            # the JAX package encrypts at the first level and mod-switches down
-            raise NotImplementedError("public-key encryption below the first level needs mod_switch_to_next "
-                                      "(ROADMAP.md queue 1, item 8)")
+            # below the first level: encrypt there and switch down
+            # (encryptor.cpp encrypt_zero_internal)
+            from .evaluator import Evaluator
+
+            ct = self._encrypt_zero_internal(self.context.first_parms_id, True, save_seed)
+            ev = Evaluator(self.context)
+            while ct.parms_id != parms_id:
+                ct = ev.mod_switch_to_next(ct)
+            return ct
         return encrypt_zero_asymmetric(self._public_key, self.context, parms_id)
 
     # -- plaintext encryptions --------------------------------------------

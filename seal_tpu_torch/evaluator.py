@@ -1,40 +1,52 @@
-"""Evaluator: the CKKS server path (multiply, relinearize, rescale).
+"""Evaluator: the CKKS homomorphic op surface.
 
 Port of the CKKS part of ``seal_tpu/evaluator.py`` (counterpart of
-``evaluator.{h,cpp}``).  Ring arithmetic runs on the context's device;
-metadata (levels, scales) is tracked on the host.  Ciphertexts are
-immutable: every op returns a new Ciphertext.  There is no jit cache: the
-ops run eagerly, and the constants each level needs are built once and
-kept in ``self._plans``.
+``evaluator.{h,cpp}``): negate, add, sub, add_many, multiply, square,
+relinearize, the modulus switches (mod_switch_to_next/to, rescale_to_next/to,
+mod_reduce_to_next/to, mod_switch_plain_to), the plaintext ops (add_plain,
+sub_plain, multiply_plain on all four of its branches), the NTT transforms,
+and the Galois ops (apply_galois, rotate_vector, complex_conjugate).  Ring
+arithmetic runs on the context's device; metadata (levels, scales) is
+tracked on the host.  Ciphertexts are immutable: every op returns a new
+Ciphertext.  There is no jit cache: the ops run eagerly, and the constants
+each level needs are built once and kept in ``self._plans``.
 
-The ring bodies (the convolution and the key switch) live in
-``ckks_bodies.py``, their mesh versions in ``parallel/sharded.py``.  On the
-card the two NTT sites and the key-switch contraction launch the
-hand-written kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``);
-the convolution, the key-switch tail and the rescale's subtract-and-scale
-are elementwise mod-q arithmetic in plain PyTorch.  Inside
-``ops.ntt.plain_on_card()`` the plain PyTorch versions run on the card as
-well, to check the kernels.
+The ring bodies (the convolution, the key switch and the Galois body) live
+in ``ckks_bodies.py``, their mesh versions in ``parallel/sharded.py``.  On
+the card every NTT and the key-switch contraction launch the hand-written
+kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois
+permutation is one ``index_select``, and the rest is elementwise mod-q
+arithmetic in plain PyTorch.  Inside ``ops.ntt.plain_on_card()`` the plain
+PyTorch versions run on the card as well, to check the kernels.
 
-BFV and BGV, rotations and the rest of the evaluator surface raise
-``NotImplementedError`` naming their ROADMAP.md item.
+BFV and BGV need their schemes' arithmetic (the BEHZ multiply, the scaling
+variant, correction factors), which is not ported yet: their branches raise
+``NotImplementedError`` naming their ROADMAP.md items, and so do
+``rotate_rows`` and ``rotate_columns`` on their contexts.
 """
 
 from __future__ import annotations
 
 import math
 import sys
-from typing import Dict
+from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
-from .ckks_bodies import KeySwitchPlan, convolve, key_switch_contract, key_switch_tail
+from . import numth
+from .ckks_bodies import KeySwitchPlan, convolve, galois, key_switch_contract, key_switch_tail
 from .context import ContextData, SealContext
-from .data import Ciphertext, KSwitchKeys, RelinKeys
-from .params import SchemeType, not_ported
+from .data import Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, RelinKeys
+from .encryptor import bgv_lift_plain
+from .params import ParmsId, SchemeType, not_ported
 from .parallel import sharded
 from .parallel.mesh import ShardedTensor, shard, shard_kswitch_key
+from .ops import ntt as NTT
+from .ops import poly as P
 from .ops import rns as R
+from .ops import u64 as U
+from .ops.rns import _c
 
 
 def are_same_scale(scale1: float, scale2: float) -> bool:
@@ -43,6 +55,16 @@ def are_same_scale(scale1: float, scale2: float) -> bool:
     closeness."""
     scale_factor = max(abs(scale1), abs(scale2), 1.0)
     return abs(scale1 - scale2) < sys.float_info.epsilon * scale_factor
+
+
+def add_sub_padded(x: torch.Tensor, y: torch.Tensor, q: torch.Tensor, is_add: bool) -> torch.Tensor:
+    """(x +- y) mod q over the polynomial axis -3 of (..., size, k, n) data;
+    the shorter operand's missing polys are zero."""
+    pad = x.shape[-3] - y.shape[-3]
+    if pad:
+        zeros = lambda a, p: a.new_zeros(a.shape[:-3] + (p,) + a.shape[-2:])
+        x, y = (x, torch.cat([y, zeros(y, pad)], dim=-3)) if pad > 0 else (torch.cat([x, zeros(x, -pad)], dim=-3), y)
+    return U.add_mod(x, y, q) if is_add else U.sub_mod(x, y, q)
 
 
 def _is_scale_within_bounds(scale: float, cd: ContextData) -> bool:
@@ -104,6 +126,10 @@ class Evaluator:
         cd = self.context.get_context_data(ct.parms_id)
         if cd is None:
             raise ValueError("ciphertext is not valid for encryption parameters")
+        if ct.seed_info is not None:
+            # c1 of a seeded ciphertext is for serialization only
+            # (is_buffer_valid rejection of seeded objects, ciphertext.h:711-725)
+            raise ValueError("ciphertext is not valid for encryption parameters (contains a seed)")
         if ct.size < 2:
             raise ValueError("ciphertext is empty or invalid")
         if not isinstance(ct.data, ShardedTensor) and ct.data.device != self.context.device:
@@ -117,6 +143,67 @@ class Evaluator:
         if ct.is_transparent():
             raise ValueError("result ciphertext is transparent")
 
+    @staticmethod
+    def _check_same(ct1: Ciphertext, ct2: Ciphertext):
+        if ct1.parms_id != ct2.parms_id:
+            raise ValueError("encrypted1 and encrypted2 parameter mismatch")
+        if ct1.is_ntt_form != ct2.is_ntt_form:
+            raise ValueError("NTT form mismatch")
+        if not are_same_scale(ct1.scale, ct2.scale):
+            raise ValueError("scale mismatch")
+
+    def _scheme(self) -> SchemeType:
+        return self.context.first_context_data().parms.scheme
+
+    def _elementwise(self, cd: ContextData, data, fn, other=None):
+        """fn(x, y, q) on the data's limbs (y None for a unary op), on one
+        device or on each rank's limbs of sharded data."""
+        if isinstance(data, ShardedTensor) or isinstance(other, ShardedTensor):
+            return sharded.elementwise(self._plan, cd, data, fn, other)
+        return fn(data, other, cd.limb_tables().q)
+
+    def _limbwise(self, cd: ContextData, data, fn):
+        """fn(x, t, lo, hi) on the data's limbs [lo, hi) with the level's
+        tables ``t`` of them: the whole level on one device, or each rank's
+        own limbs of sharded data."""
+        if isinstance(data, ShardedTensor):
+            return sharded.limbwise(self._plan, cd, data, fn)
+        return fn(data, cd.limb_tables(), 0, data.shape[-2])
+
+    # ------------------------------------------------------------------
+    # negate / add / sub
+    # ------------------------------------------------------------------
+    def negate(self, ct: Ciphertext) -> Ciphertext:
+        cd = self._cd(ct)
+        out = ct.copy()
+        out.data = self._elementwise(cd, ct.data, lambda x, _, q: U.neg_mod(x, q))
+        self._check_transparent(out)
+        return out
+
+    def _add_sub(self, ct1: Ciphertext, ct2: Ciphertext, is_add: bool) -> Ciphertext:
+        self._check_same(ct1, ct2)
+        cd = self._cd(ct1)
+        if cd.parms.scheme == SchemeType.BGV and ct1.correction_factor != ct2.correction_factor:
+            raise not_ported(SchemeType.BGV)     # correction-factor balancing
+        out = ct1.copy()
+        out.data = self._elementwise(cd, ct1.data, lambda x, y, q: add_sub_padded(x, y, q, is_add), ct2.data)
+        self._check_transparent(out)
+        return out
+
+    def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        return self._add_sub(ct1, ct2, True)
+
+    def sub(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        return self._add_sub(ct1, ct2, False)
+
+    def add_many(self, cts: Sequence[Ciphertext]) -> Ciphertext:
+        if not cts:
+            raise ValueError("encrypteds cannot be empty")
+        acc = cts[0]
+        for ct in cts[1:]:
+            acc = self.add(acc, ct)
+        return acc
+
     # ------------------------------------------------------------------
     # multiply
     # ------------------------------------------------------------------
@@ -129,6 +216,23 @@ class Evaluator:
         out = self._ckks_multiply(ct1, ct2)
         self._check_transparent(out)
         return out
+
+    def square(self, ct: Ciphertext) -> Ciphertext:
+        return self.multiply(ct, ct)
+
+    def multiply_many(self, cts: Sequence[Ciphertext], relin_keys: RelinKeys) -> Ciphertext:
+        """Binary-tree product, BFV and BGV only (evaluator.cpp:1649-1724)."""
+        if not cts:
+            raise ValueError("encrypteds cannot be empty")
+        scheme = self._scheme()
+        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+            raise ValueError("unsupported scheme")
+        raise not_ported(scheme)
+
+    def exponentiate(self, ct: Ciphertext, exponent: int, relin_keys: RelinKeys) -> Ciphertext:
+        if exponent == 0:
+            raise ValueError("exponent cannot be 0")
+        return self.multiply_many([ct] * exponent, relin_keys)
 
     def _ckks_multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
         if not (ct1.is_ntt_form and ct2.is_ntt_form):
@@ -242,3 +346,307 @@ class Evaluator:
         out = self._mod_switch_scale_to_next(ct)
         self._check_transparent(out)
         return out
+
+    def rescale_to(self, ct: Ciphertext, parms_id: ParmsId) -> Ciphertext:
+        target = self.context.get_context_data(parms_id)
+        cd = self._cd(ct)
+        if target is None or cd.chain_index < target.chain_index:
+            raise ValueError("cannot switch to higher level modulus")
+        out = ct
+        while out.parms_id != parms_id:
+            out = self.rescale_to_next(out)
+        return out
+
+    # ------------------------------------------------------------------
+    # modulus switching by dropping limbs
+    # ------------------------------------------------------------------
+    def _mod_switch_drop_to_next(self, ct: Ciphertext) -> Ciphertext:
+        cd = self._cd(ct)
+        next_cd = cd.next_context_data
+        if next_cd is None:
+            raise ValueError("end of modulus switching chain reached")
+        if cd.parms.scheme == SchemeType.CKKS and not _is_scale_within_bounds(ct.scale, next_cd):
+            raise ValueError("scale out of bounds")
+        out = ct.copy()
+        out.data = drop_limbs(ct.data, len(next_cd.parms.coeff_modulus))
+        out.parms_id = next_cd.parms_id
+        return out
+
+    def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
+        self._cd(ct)
+        scheme = self._scheme()
+        if scheme != SchemeType.CKKS:
+            raise not_ported(scheme)        # the scale variant of BFV and BGV
+        out = self._mod_switch_drop_to_next(ct)
+        self._check_transparent(out)
+        return out
+
+    def mod_switch_to(self, ct: Ciphertext, parms_id: ParmsId) -> Ciphertext:
+        cd = self._cd(ct)
+        target = self.context.get_context_data(parms_id)
+        if target is None:
+            raise ValueError("parms_id is not valid")
+        if cd.chain_index < target.chain_index:
+            raise ValueError("cannot switch to higher level modulus")
+        out = ct
+        while out.parms_id != parms_id:
+            out = self.mod_switch_to_next(out)
+        return out
+
+    def mod_switch_plain_to(self, plain: Plaintext, parms_id: ParmsId) -> Plaintext:
+        """NTT-form plaintext: drop limbs only."""
+        if not plain.is_ntt_form:
+            raise ValueError("plain is not in NTT form")
+        cd = self.context.get_context_data(plain.parms_id)
+        target = self.context.get_context_data(parms_id)
+        if cd is None or target is None:
+            raise ValueError("parms_id is not valid")
+        if cd.chain_index < target.chain_index:
+            raise ValueError("cannot switch to higher level modulus")
+        out = plain.copy()
+        out.rns_data = drop_limbs(plain.rns_data, len(target.parms.coeff_modulus))
+        out.parms_id = tuple(parms_id)
+        return out
+
+    def mod_reduce_to_next(self, ct: Ciphertext) -> Ciphertext:
+        out = self._mod_switch_drop_to_next(ct)
+        self._check_transparent(out)
+        return out
+
+    def mod_reduce_to(self, ct: Ciphertext, parms_id: ParmsId) -> Ciphertext:
+        out = ct
+        while out.parms_id != parms_id:
+            out = self.mod_reduce_to_next(out)
+        return out
+
+    # ------------------------------------------------------------------
+    # plaintext ops
+    # ------------------------------------------------------------------
+    def add_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
+        return self._add_sub_plain(ct, plain, True)
+
+    def sub_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
+        return self._add_sub_plain(ct, plain, False)
+
+    def _add_sub_plain(self, ct: Ciphertext, plain: Plaintext, is_add: bool) -> Ciphertext:
+        cd = self._cd(ct)
+        scheme = cd.parms.scheme
+        if scheme != SchemeType.CKKS:
+            raise not_ported(scheme)
+        if not ct.is_ntt_form or not plain.is_ntt_form:
+            raise ValueError("CKKS operands must be in NTT form")
+        if ct.parms_id != plain.parms_id:
+            raise ValueError("encrypted and plain parameter mismatch")
+        if not are_same_scale(ct.scale, plain.scale):
+            raise ValueError("scale mismatch")
+        out = ct.copy()
+        out.data = self._limbwise(cd, ct.data, lambda x, t, lo, hi: add_sub_plain(
+            x, plain.rns_data[lo:hi].to(x.device), t.q, is_add))
+        self._check_transparent(out)
+        return out
+
+    def multiply_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
+        self._cd(ct)
+        scheme = self._scheme()
+        if scheme != SchemeType.CKKS:
+            raise not_ported(scheme)
+        if ct.is_ntt_form and plain.is_ntt_form:
+            out = self._multiply_plain_ntt(ct, plain)
+        elif not ct.is_ntt_form and not plain.is_ntt_form:
+            out = self._multiply_plain_normal(ct, plain)
+        elif ct.is_ntt_form:
+            # NTT ciphertext x coefficient plaintext: lift the plaintext
+            out = self._multiply_plain_ntt(ct, self.transform_plain_to_ntt(plain, ct.parms_id))
+        else:
+            # coefficient ciphertext x NTT plaintext: transform the ciphertext,
+            # multiply in the NTT domain, transform back (evaluator.cpp:2006-2010)
+            out = self.transform_from_ntt(self._multiply_plain_ntt(self.transform_to_ntt(ct), plain))
+        self._check_transparent(out)
+        return out
+
+    def _multiply_plain_ntt(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
+        if ct.parms_id != plain.parms_id:
+            raise ValueError("encrypted and plain parameter mismatch")
+        cd = self._cd(ct)
+        scale = ct.scale * plain.scale
+        if not _is_scale_within_bounds(scale, cd):
+            raise ValueError("scale out of bounds")
+        out = ct.copy()
+        out.data = self._limbwise(cd, ct.data, lambda x, t, lo, hi: U.mul_mod(
+            x, plain.rns_data[lo:hi].to(x.device), t.q, t.ratio_lo, t.ratio_hi))
+        out.scale = scale
+        return out
+
+    def _multiply_plain_normal(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
+        cd = self._cd(ct)
+        scale = ct.scale * plain.scale
+        if not _is_scale_within_bounds(scale, cd):
+            raise ValueError("scale out of bounds")
+        out = ct.copy()
+        out.data = self._limbwise(cd, ct.data, multiply_plain_normal_body(cd, plain))
+        out.scale = scale
+        return out
+
+    # ------------------------------------------------------------------
+    # NTT transforms
+    # ------------------------------------------------------------------
+    def transform_plain_to_ntt(self, plain: Plaintext, parms_id: ParmsId) -> Plaintext:
+        """Lift a coefficient plaintext to RNS base q and NTT (evaluator.cpp:2196+)."""
+        if plain.is_ntt_form:
+            raise ValueError("plain is already in NTT form")
+        cd = self.context.get_context_data(parms_id)
+        if cd is None:
+            raise ValueError("parms_id is not valid")
+        out = plain.copy()
+        out.rns_data = bgv_lift_plain(plain, cd)
+        out.parms_id = tuple(parms_id)
+        out.coeff_data = np.zeros(0, dtype=np.uint64)
+        return out
+
+    def transform_to_ntt(self, ct: Ciphertext) -> Ciphertext:
+        if ct.is_ntt_form:
+            raise ValueError("encrypted is already in NTT form")
+        cd = self._cd(ct)
+        out = ct.copy()
+        out.data = self._limbwise(cd, ct.data, lambda x, t, lo, hi: NTT.forward(x, t))
+        out.is_ntt_form = True
+        return out
+
+    def transform_from_ntt(self, ct: Ciphertext) -> Ciphertext:
+        if not ct.is_ntt_form:
+            raise ValueError("encrypted is not in NTT form")
+        cd = self._cd(ct)
+        out = ct.copy()
+        out.data = self._limbwise(cd, ct.data, lambda x, t, lo, hi: NTT.inverse(x, t))
+        out.is_ntt_form = False
+        return out
+
+    # ------------------------------------------------------------------
+    # Galois automorphisms and rotations (evaluator.cpp:2384-2559)
+    # ------------------------------------------------------------------
+    def apply_galois(self, ct: Ciphertext, galois_elt: int, galois_keys: GaloisKeys) -> Ciphertext:
+        cd = self._cd(ct)
+        if galois_keys.parms_id != self.context.key_parms_id:
+            raise ValueError("galois_keys is not valid for encryption parameters")
+        n = cd.parms.poly_modulus_degree
+        scheme = cd.parms.scheme
+        if scheme == SchemeType.BFV and ct.is_ntt_form:
+            raise ValueError("BFV encrypted cannot be in NTT form")
+        if scheme in (SchemeType.CKKS, SchemeType.BGV) and not ct.is_ntt_form:
+            raise ValueError(f"{scheme.name} encrypted must be in NTT form")
+        if not (galois_elt & 1) or galois_elt >= 2 * n:
+            raise ValueError("Galois element is not valid")
+        if ct.size > 2:
+            raise ValueError("encrypted size must be 2")
+        if not galois_keys.has_key(galois_elt):
+            raise ValueError("Galois key not present")
+        key = galois_keys.key(galois_elt)
+        if key is None or key["c0"].shape[0] < len(cd.parms.coeff_modulus):
+            raise ValueError("key-switching keys are invalid for encryption parameters")
+        if scheme != SchemeType.CKKS:
+            raise not_ported(scheme)
+        out = ct.copy()
+        if isinstance(ct.data, ShardedTensor):
+            out.data = sharded.galois(self._plan, cd, ct.data, galois_elt, key)
+        else:
+            table = cd.galois_tool.ntt_index(galois_elt, ct.data.device)
+            out.data = galois(self._plan(cd), ct.data, table, key["c0"], key["c1"])
+        self._check_transparent(out)
+        return out
+
+    def _rotate_internal(self, ct: Ciphertext, steps: int, galois_keys: GaloisKeys) -> Ciphertext:
+        cd = self._cd(ct)
+        if not cd.qualifiers.using_batching:
+            raise ValueError("encryption parameters do not support batching")
+        return rotate_by_steps(self.apply_galois, cd.galois_tool, ct, steps, galois_keys)
+
+    def rotate_rows(self, ct: Ciphertext, steps: int, galois_keys: GaloisKeys) -> Ciphertext:
+        scheme = self._scheme()
+        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+            raise ValueError("unsupported scheme")
+        raise not_ported(scheme)
+
+    def rotate_columns(self, ct: Ciphertext, galois_keys: GaloisKeys) -> Ciphertext:
+        scheme = self._scheme()
+        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+            raise ValueError("unsupported scheme")
+        raise not_ported(scheme)
+
+    def rotate_vector(self, ct: Ciphertext, steps: int, galois_keys: GaloisKeys) -> Ciphertext:
+        if self._scheme() != SchemeType.CKKS:
+            raise ValueError("unsupported scheme")
+        return self._rotate_internal(ct, steps, galois_keys)
+
+    def complex_conjugate(self, ct: Ciphertext, galois_keys: GaloisKeys) -> Ciphertext:
+        if self._scheme() != SchemeType.CKKS:
+            raise ValueError("unsupported scheme")
+        cd = self._cd(ct)
+        return self.apply_galois(ct, 2 * cd.parms.poly_modulus_degree - 1, galois_keys)
+
+
+def rotate_by_steps(apply_galois, tool, x, steps: int, galois_keys: GaloisKeys):
+    """Rotate ``x`` by ``steps`` slots: one ``apply_galois`` with the step's
+    key, or, without it, one per term of the step's non-adjacent form
+    (evaluator.cpp:2538-2557)."""
+    if steps == 0:
+        return x
+    elt = tool.get_elt_from_step(steps)
+    if galois_keys.has_key(elt):
+        return apply_galois(x, elt, galois_keys)
+    naf_steps = numth.naf(steps)
+    if len(naf_steps) == 1:
+        raise ValueError("Galois key not present")
+    for s in naf_steps:
+        x = rotate_by_steps(apply_galois, tool, x, s, galois_keys)
+    return x
+
+
+def drop_limbs(data, k_next: int):
+    """The first ``k_next`` RNS limbs (axis -2) of a ciphertext's or a
+    plaintext's data, contiguous, as the kernels take it; re-split over the
+    limb axis for sharded data."""
+    if isinstance(data, ShardedTensor):
+        return sharded.drop_limbs(data, k_next)
+    return data[..., :k_next, :].contiguous()
+
+
+def add_sub_plain(x: torch.Tensor, p: torch.Tensor, q: torch.Tensor, is_add: bool) -> torch.Tensor:
+    """(c0 +- p) mod q on the polynomial axis -3 of (..., size, k, n) data;
+    the other polys are copied."""
+    c0 = (U.add_mod if is_add else U.sub_mod)(x[..., :1, :, :], p, q)
+    return torch.cat([c0, x[..., 1:, :, :]], dim=-3)
+
+
+def multiply_plain_normal_body(cd: ContextData, plain: Plaintext):
+    """The body of a coefficient-form multiply_plain (evaluator.cpp:2021-2155)
+    as fn(x, t, lo, hi), for the limbs [lo, hi) of the level.  A plaintext
+    with one nonzero coefficient multiplies by a monomial: a constant per
+    limb and a negacyclic shift (the reference's fast path; it branches on
+    the plaintext's structure, a timing dependence the reference documents
+    at evaluator.cpp:2044-2047).  Any other plaintext is lifted and
+    NTT-transformed once, and each poly goes through the NTT and back."""
+    sig = plain.significant_coeff_count()
+    if int(np.count_nonzero(plain.coeff_data)) == 1:
+        exp = sig - 1
+        coeff = int(plain.coeff_data[exp])
+        qv = cd.coeff_modulus_values
+        if coeff >= cd.plain_upper_half_threshold:
+            if not cd.qualifiers.using_fast_plain_lift:
+                lifted_c = coeff + (cd.total_coeff_modulus - cd.parms.plain_modulus.value)
+                mono = [lifted_c % q for q in qv]
+            else:
+                mono = [(coeff + inc) % q for q, inc in zip(qv, cd.plain_upper_half_increment)]
+        else:
+            mono = [coeff % q for q in qv]
+
+        def mono_body(x, t, lo, hi):
+            return P.mono_multiply(x, _c(mono[lo:hi], x.device), exp, t.q, t.ratio_lo, t.ratio_hi)
+
+        return mono_body
+    lifted = bgv_lift_plain(plain, cd)          # (k, n) NTT form
+
+    def general_body(x, t, lo, hi):
+        px = U.mul_mod(NTT.forward(x, t, lazy=True), lifted[lo:hi].to(x.device), t.q, t.ratio_lo, t.ratio_hi)
+        return NTT.inverse(px, t)
+
+    return general_body

@@ -25,6 +25,21 @@ package on the CPU; ``tests/test_torch_slice.py``
 recomputes them from both the JAX package and the port's plain path (the
 JAX side of ``MEDIUM_DIGEST`` in a test marked ``slow``), and
 ``chip_smoke.py`` from the kernels on the card.
+
+``LINEAR_DIGEST`` is the SHA-256 of one step of an encrypted linear layer,
+the inner loop of ``benchmarks/batched_32768.py`` (:func:`linear_layer_step`:
+multiply_plain -> rotate_vector(1) -> multiply -> relinearize ->
+rescale_to_next), on :func:`medium_context` with the inputs of
+:func:`linear_inputs`: the ciphertext is the first of
+``request_inputs(ctx, GOLDEN_REQUEST_SEED)`` at scale 2^40, the plaintext
+``plain_inputs(ctx, 2)`` at scale 2^40, the Galois key of element 3 (one
+step) ``galois_key_inputs(ctx, 3)``, and the relinearization key
+``key_inputs(ctx, GOLDEN_KEY_SEED)``.  It was computed once with the JAX
+package's ``Evaluator`` on the CPU (``SEAL_TPU_NTT`` at its default,
+``JAX_PLATFORMS=cpu``), by :func:`linear_layer_step` on those inputs carried
+across with ``seal_tpu.ops.u64.from_np_u64``; ``tests/test_torch_linear.py``
+recomputes it from the port's plain path and, in a test marked ``slow``,
+from the JAX package, and ``chip_smoke.py`` from the kernels on the card.
 """
 
 from __future__ import annotations
@@ -49,6 +64,11 @@ LARGE_DIGEST = "a125529dbd63f6a1af2c9c146075c5b0291303113d8ae5ce08151d1c208aa702
 MEDIUM_N = 32768
 MEDIUM_CHAIN = "CoeffModulus.bfv_default(32768): 16 moduli, 881 bits; SecurityLevel.TC128; chain expanded"
 MEDIUM_DIGEST = "c71d85f32d95061a9225125fc67ab03d618d1e2a6b377020504f2e7ac8ff415e"
+LINEAR_SCALE = 2.0 ** 40
+LINEAR_PLAIN_SEED = 2
+LINEAR_GALOIS_SEED = 3
+LINEAR_GALOIS_ELT = 3            # get_elt_from_step(1)
+LINEAR_DIGEST = "1363d56db28f6ce40db9c3b33598a9c9d2b0f5a364d4dcc380f3ce3b72ac56fc"
 
 _GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _M1 = np.uint64(0xBF58476D1CE4E5B9)
@@ -95,6 +115,36 @@ def key_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]
     n = key_cd.parms.poly_modulus_degree
     both = _residues(seed, key_cd.coeff_modulus_values, (2, D), n)
     return both[0], both[1]
+
+
+def plain_inputs(context: SealContext, seed: int) -> np.ndarray:
+    """An NTT-form plaintext's data at the first level: (k, n)."""
+    cd = context.first_context_data()
+    return _residues(seed, cd.coeff_modulus_values, (), cd.parms.poly_modulus_degree)
+
+
+def galois_key_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A Galois key's two components, for element 3 (a rotation by one
+    step): (D, k_key, n) each."""
+    return key_inputs(context, seed)
+
+
+def linear_inputs(context: SealContext, request: int = 0):
+    """The numpy inputs of request ``request`` of the linear-layer step:
+    (ciphertext data (2, k, n), plaintext data (k, n), Galois key pair,
+    relinearization key pair)."""
+    ct, _ = request_inputs(context, GOLDEN_REQUEST_SEED + request)
+    return (ct, plain_inputs(context, LINEAR_PLAIN_SEED), galois_key_inputs(context, LINEAR_GALOIS_SEED),
+            key_inputs(context, GOLDEN_KEY_SEED))
+
+
+def linear_layer_step(ev, ct, plain, galois_keys, relin_keys):
+    """multiply_plain -> rotate_vector(1) -> multiply -> relinearize ->
+    rescale_to_next (``benchmarks/batched_32768.py:70-78``).  ``ev`` is an
+    Evaluator or a BatchEvaluator, of either package: the method names are
+    the same."""
+    rotated = ev.rotate_vector(ev.multiply_plain(ct, plain), 1, galois_keys)
+    return ev.rescale_to_next(ev.relinearize(ev.multiply(rotated, ct), relin_keys))
 
 
 def digest(out: np.ndarray) -> str:

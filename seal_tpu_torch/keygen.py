@@ -1,30 +1,29 @@
-"""Key generation: the secret key, the public key and relinearization keys.
+"""Key generation: the secret key, the public key, relinearization keys and
+Galois keys.
 
 Port of ``seal_tpu/keygen.py`` (counterpart of ``keygenerator.{h,cpp}``) on
 its host-sampled path.  A key-switching key follows the reference
 (``keygenerator.cpp:327-360``): for decomposition limb i, an NTT-form
 encryption of zero at the key level with ``(q_last mod q_i) * target[i]``
-added into c0's limb i, stacked over the decomposition axis.  Galois keys
-arrive with rotations (ROADMAP.md queue 1, item 8).
+added into c0's limb i, stacked over the decomposition axis.  A Galois key is the key-switching
+key of the secret key's automorphism (``keygenerator.cpp`` generate_galois_keys).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
 from .context import SealContext
-from .data import PublicKey, RelinKeys, SecretKey
+from .data import GaloisKeys, PublicKey, RelinKeys, SecretKey
 from .ntt_tables import u64_tensor
 from .ops import ntt as NTT
+from .ops import poly as P
 from .ops import u64 as U
 from .ops.rns import _c, _cshoup
 from .random.sampler import sample_poly_ternary
 from .rlwe import encrypt_zero_symmetric
-
-_GALOIS = "Galois keys and rotations are not ported yet (ROADMAP.md queue 1, item 8)"
-
 
 class KeyGenerator:
     def __init__(self, context: SealContext, secret_key: Optional[SecretKey] = None):
@@ -86,8 +85,30 @@ class KeyGenerator:
         keys.parms_id = self.context.key_parms_id
         return keys
 
-    def create_galois_keys(self, *args, **kwargs):
-        raise NotImplementedError(_GALOIS)
+    def create_galois_keys(self, galois_elts: Optional[Sequence[int]] = None,
+                           save_seed: bool = False) -> GaloisKeys:
+        """Keys for the given Galois elements (default: every power-of-two
+        rotation and the conjugation), sampled in the order given."""
+        cd = self.context.key_context_data()
+        galois_tool = cd.galois_tool
+        n = cd.parms.poly_modulus_degree
+        if galois_elts is None:
+            galois_elts = galois_tool.get_elts_all()
+        keys = GaloisKeys()
+        # n entries: index = (elt - 1) / 2 < n for odd elt < 2n, and the
+        # reference sizes the outer vector to N (the wire format needs it)
+        keys.keys = [None] * n
+        for elt in galois_elts:
+            if not (elt & 1) or elt >= 2 * n:
+                raise ValueError("Galois element is not valid")
+            index = GaloisKeys.get_index(elt)
+            if keys.keys[index] is not None:
+                continue
+            rotated_sk = P.apply_galois_ntt(self._secret_key.data, galois_tool.ntt_index(elt, self.context.device))
+            keys.keys[index] = self._generate_one_kswitch_key(rotated_sk, save_seed)
+        keys.parms_id = self.context.key_parms_id
+        return keys
 
-    def create_galois_keys_from_steps(self, *args, **kwargs):
-        raise NotImplementedError(_GALOIS)
+    def create_galois_keys_from_steps(self, steps: Sequence[int], save_seed: bool = False) -> GaloisKeys:
+        cd = self.context.key_context_data()
+        return self.create_galois_keys(cd.galois_tool.get_elts_from_steps(steps), save_seed)

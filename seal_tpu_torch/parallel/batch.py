@@ -9,8 +9,9 @@ axes and the RNS limbs over the ``limb`` axis, and each rank runs the same
 bodies on its own ciphertexts and limbs (``parallel/sharded.py``; kernel B
 takes the batch on its grid's second axis).
 
-Every result equals the single-device evaluator's bit for bit.  Other
-methods raise ``NotImplementedError`` naming their ROADMAP.md item.
+Every result equals the single-device evaluator's bit for bit.
+``multiply_many`` (BFV and BGV only) raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from ..ckks_bodies import convolve
+from ..ckks_bodies import convolve, galois
 from ..context import ContextData, SealContext
-from ..data import Ciphertext, RelinKeys
-from ..evaluator import Evaluator, _is_scale_within_bounds, are_same_scale
+from ..data import Ciphertext, GaloisKeys, Plaintext, RelinKeys
+from ..evaluator import (Evaluator, _is_scale_within_bounds, add_sub_padded, add_sub_plain, are_same_scale,
+                         drop_limbs, multiply_plain_normal_body, rotate_by_steps)
+from ..ops import ntt as NTT
 from ..ops import rns as R
 from ..ops import u64 as U
 from ..params import ParmsId, SchemeType, not_ported
@@ -113,12 +116,6 @@ class BatchEvaluator:
         if key is None or key["c0"].shape[0] < D:
             raise ValueError("key-switching keys are invalid for encryption parameters")
 
-    def _elementwise(self, cd: ContextData, data: Data, fn, other: Optional[Data] = None) -> Data:
-        """fn(x, y, q) on the batch's limbs (y None for a unary op)."""
-        if isinstance(data, ShardedTensor) or isinstance(other, ShardedTensor):
-            return sharded.elementwise(self.ev._plan, cd, data, fn, other)
-        return fn(data, other, cd.limb_tables().q)
-
     def multiply(self, b1: CiphertextBatch, b2: CiphertextBatch) -> CiphertextBatch:
         if b1.parms_id != b2.parms_id:
             raise ValueError("parameter mismatch")
@@ -180,56 +177,141 @@ class BatchEvaluator:
         if not are_same_scale(b1.scale, b2.scale):
             raise ValueError("scale mismatch")
         cd = self._cd(b1)
-
-        def combine(x, y, q):
-            pad = x.shape[-3] - y.shape[-3]
-            if pad:     # the shorter operand's missing polys are zero
-                zeros = lambda a, p: a.new_zeros(a.shape[:-3] + (p,) + a.shape[-2:])
-                x, y = (x, torch.cat([y, zeros(y, pad)], dim=-3)) if pad > 0 else \
-                    (torch.cat([x, zeros(x, -pad)], dim=-3), y)
-            return U.add_mod(x, y, q) if is_add else U.sub_mod(x, y, q)
-
-        data = self._elementwise(cd, b1.data, combine, b2.data)
+        data = self.ev._elementwise(cd, b1.data, lambda x, y, q: add_sub_padded(x, y, q, is_add), b2.data)
         return CiphertextBatch(data, b1.parms_id, b1.is_ntt_form, b1.scale, b1.correction_factor)
 
     def negate(self, batch: CiphertextBatch) -> CiphertextBatch:
         cd = self._cd(batch)
-        data = self._elementwise(cd, batch.data, lambda x, _, q: U.neg_mod(x, q))
+        data = self.ev._elementwise(cd, batch.data, lambda x, _, q: U.neg_mod(x, q))
         return CiphertextBatch(data, batch.parms_id, batch.is_ntt_form, batch.scale, batch.correction_factor)
 
+    def _like(self, batch: CiphertextBatch, data: Data, **changes) -> CiphertextBatch:
+        fields = dict(parms_id=batch.parms_id, is_ntt_form=batch.is_ntt_form, scale=batch.scale,
+                      correction_factor=batch.correction_factor)
+        fields.update(changes)
+        return CiphertextBatch(data, **fields)
+
+    # -- level management --------------------------------------------------
+    def mod_switch_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
+        """The CKKS modulus switch: drop the last limb, as the evaluator's
+        mod_switch_to_next (the scale variant of BFV and BGV waits for
+        those schemes)."""
+        return self.mod_reduce_to_next(batch)
+
+    def mod_reduce_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
+        """Drop the last limb (mod_reduce_to_next, evaluator.cpp:1597-1648)."""
+        cd = self._cd(batch)
+        next_cd = cd.next_context_data
+        if next_cd is None:
+            raise ValueError("end of modulus switching chain reached")
+        if not _is_scale_within_bounds(batch.scale, next_cd):
+            raise ValueError("scale out of bounds")
+        return self._like(batch, drop_limbs(batch.data, len(next_cd.parms.coeff_modulus)),
+                          parms_id=next_cd.parms_id)
+
+    # -- rotations ---------------------------------------------------------
+    def apply_galois(self, batch: CiphertextBatch, galois_elt: int, galois_keys: GaloisKeys) -> CiphertextBatch:
+        """Galois permutation and key switch over the whole batch: one
+        gather, and one launch of kernel B for all of it."""
+        cd = self._cd(batch)
+        if batch.size != 2:
+            raise ValueError("batched apply_galois requires size-2 ciphertexts")
+        if not galois_keys.has_key(galois_elt):
+            raise ValueError("Galois key not present")
+        self._check_key(galois_keys)
+        key = galois_keys.key(galois_elt)
+        self._check_key_limbs(key, cd)
+        if not batch.is_ntt_form:
+            raise ValueError("CKKS encrypted must be in NTT form")
+        if isinstance(batch.data, ShardedTensor):
+            data = sharded.galois(self.ev._plan, cd, batch.data, galois_elt, key)
+        else:
+            table = cd.galois_tool.ntt_index(galois_elt, batch.data.device)
+            data = galois(self.ev._plan(cd), batch.data, table, key["c0"], key["c1"])
+        return self._like(batch, data)
+
+    def _rows_columns_scheme(self):
+        scheme = self.context.first_context_data().parms.scheme
+        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+            raise ValueError("unsupported scheme")
+        raise not_ported(scheme)
+
+    def rotate_rows(self, batch: CiphertextBatch, steps: int, galois_keys: GaloisKeys) -> CiphertextBatch:
+        self._rows_columns_scheme()
+
+    def rotate_columns(self, batch: CiphertextBatch, galois_keys: GaloisKeys) -> CiphertextBatch:
+        self._rows_columns_scheme()
+
+    def rotate_vector(self, batch: CiphertextBatch, steps: int, galois_keys: GaloisKeys) -> CiphertextBatch:
+        if self.context.first_context_data().parms.scheme != SchemeType.CKKS:
+            raise ValueError("unsupported scheme")
+        return rotate_by_steps(self.apply_galois, self._cd(batch).galois_tool, batch, steps, galois_keys)
+
+    # -- plaintext ops -----------------------------------------------------
+    def multiply_plain(self, batch: CiphertextBatch, plain: Plaintext) -> CiphertextBatch:
+        """multiply_plain over the batch on all four branches of the
+        evaluator's; a plaintext is lifted or transformed once for the batch."""
+        self._cd(batch)
+        if batch.is_ntt_form and plain.is_ntt_form:
+            return self._multiply_plain_ntt(batch, plain)
+        if not batch.is_ntt_form and not plain.is_ntt_form:
+            cd = self._cd(batch)
+            scale = self._plain_scale(batch, plain, cd)
+            return self._like(batch, self.ev._limbwise(cd, batch.data, multiply_plain_normal_body(cd, plain)),
+                              scale=scale)
+        if batch.is_ntt_form:
+            return self._multiply_plain_ntt(batch, self.ev.transform_plain_to_ntt(plain, batch.parms_id))
+        return self.transform_from_ntt(self._multiply_plain_ntt(self.transform_to_ntt(batch), plain))
+
+    @staticmethod
+    def _plain_scale(batch: CiphertextBatch, plain: Plaintext, cd: ContextData) -> float:
+        scale = batch.scale * plain.scale
+        if not _is_scale_within_bounds(scale, cd):
+            raise ValueError("scale out of bounds")
+        return scale
+
+    def _multiply_plain_ntt(self, batch: CiphertextBatch, plain: Plaintext) -> CiphertextBatch:
+        if batch.parms_id != plain.parms_id:
+            raise ValueError("parameter mismatch")
+        cd = self._cd(batch)
+        scale = self._plain_scale(batch, plain, cd)
+        data = self.ev._limbwise(cd, batch.data, lambda x, t, lo, hi: U.mul_mod(
+            x, plain.rns_data[lo:hi].to(x.device), t.q, t.ratio_lo, t.ratio_hi))
+        return self._like(batch, data, scale=scale)
+
+    def add_plain(self, batch: CiphertextBatch, plain: Plaintext) -> CiphertextBatch:
+        return self._add_sub_plain(batch, plain, True)
+
+    def sub_plain(self, batch: CiphertextBatch, plain: Plaintext) -> CiphertextBatch:
+        return self._add_sub_plain(batch, plain, False)
+
+    def _add_sub_plain(self, batch: CiphertextBatch, plain: Plaintext, is_add: bool) -> CiphertextBatch:
+        cd = self._cd(batch)
+        if not batch.is_ntt_form or not plain.is_ntt_form:
+            raise ValueError("CKKS operands must be in NTT form")
+        if batch.parms_id != plain.parms_id:
+            raise ValueError("encrypted and plain parameter mismatch")
+        if not are_same_scale(batch.scale, plain.scale):
+            raise ValueError("scale mismatch")
+        data = self.ev._limbwise(cd, batch.data, lambda x, t, lo, hi: add_sub_plain(
+            x, plain.rns_data[lo:hi].to(x.device), t.q, is_add))
+        return self._like(batch, data)
+
+    # -- NTT transforms ----------------------------------------------------
+    def transform_to_ntt(self, batch: CiphertextBatch) -> CiphertextBatch:
+        if batch.is_ntt_form:
+            raise ValueError("encrypted is already in NTT form")
+        cd = self._cd(batch)
+        return self._like(batch, self.ev._limbwise(cd, batch.data, lambda x, t, lo, hi: NTT.forward(x, t)),
+                          is_ntt_form=True)
+
+    def transform_from_ntt(self, batch: CiphertextBatch) -> CiphertextBatch:
+        if not batch.is_ntt_form:
+            raise ValueError("encrypted is not in NTT form")
+        cd = self._cd(batch)
+        return self._like(batch, self.ev._limbwise(cd, batch.data, lambda x, t, lo, hi: NTT.inverse(x, t)),
+                          is_ntt_form=False)
+
     # -- not ported yet ---------------------------------------------------
-    def mod_switch_to_next(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.mod_switch_to_next", 8)
-
-    def mod_reduce_to_next(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.mod_reduce_to_next", 8)
-
-    def apply_galois(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.apply_galois (Galois keys)", 8)
-
-    def rotate_rows(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.rotate_rows", 8)
-
-    def rotate_columns(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.rotate_columns", 8)
-
-    def rotate_vector(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.rotate_vector", 8)
-
-    def multiply_plain(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.multiply_plain", 8)
-
-    def add_plain(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.add_plain", 8)
-
-    def sub_plain(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.sub_plain", 8)
-
-    def transform_to_ntt(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.transform_to_ntt", 8)
-
-    def transform_from_ntt(self, batch, *args, **kwargs):
-        raise _unported("BatchEvaluator.transform_from_ntt", 8)
-
     def multiply_many(self, batches, *args, **kwargs):
         raise _unported("BatchEvaluator.multiply_many (BFV and BGV only)", 9)

@@ -13,7 +13,10 @@ split over the limb axis and, for batches, its leading axis over the data
   own output limbs;
 * rescale: the rank that holds the last limb broadcasts it to its limb
   group, each rank rescales its own limbs, and the limbs are re-split as
-  ``torch.tensor_split`` splits the new count.
+  ``torch.tensor_split`` splits the new count;
+* Galois automorphism: each rank permutes its own limbs (the permutation
+  acts on the coefficient axis, which no rank splits), then the key switch
+  of the permuted c1 as above.
 
 Every result equals the single-device body's bit for bit.  ``plan_for(cd,
 device)`` gives the key-switch constants of a level on a device; the
@@ -23,13 +26,14 @@ evaluators pass their cache of them.  Both ``Evaluator(mesh=...)`` and
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import torch
 
 from ..ckks_bodies import KeySwitchPlan, convolve, key_switch_contract, key_switch_tail
 from ..context import ContextData
 from ..ops import rns as R
+from ..ops.poly import apply_galois_ntt
 from ..params import SchemeType, not_ported
 from .collectives import broadcast, gather_range
 from .mesh import ShardedTensor, split_bounds
@@ -79,6 +83,32 @@ def elementwise(plan_for: PlanFor, cd: ContextData, data, fn, other=None) -> Sha
     return data.replace(shards, shape)
 
 
+def limbwise(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, fn) -> ShardedTensor:
+    """fn(x, t, lo, hi) on every rank's limbs [lo, hi) of the level, with
+    ``t`` the level's tables of those limbs; the shape stays."""
+    shards = []
+    for r in range(data.mesh.size):
+        lo, hi = data.block(r, -2)
+        shards.append(fn(data.shards[r], plan_for(cd, data.mesh.device(r)).level(lo, hi), lo, hi))
+    return data.replace(shards)
+
+
+def drop_limbs(data: ShardedTensor, k_next: int) -> ShardedTensor:
+    """The first ``k_next`` limbs of sharded (..., k, n) data, split over
+    the limb axis as ``torch.tensor_split`` splits ``k_next``."""
+    mesh = data.mesh
+    out: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for group in _limb_groups(data):
+        ranges = [data.block(g, -2) for g in group]
+        have = [(lo, max(lo, min(hi, k_next))) for lo, hi in ranges]
+        pieces = [data.shards[g][..., :b - a, :] for g, (a, b) in zip(group, have)]
+        for g, want in zip(group, split_bounds(k_next, len(group))):
+            out[g] = gather_range(pieces, have, *want, -2, mesh.device(g)).contiguous()
+    shape = list(data.shape)
+    shape[-2] = k_next
+    return data.replace(out, shape)
+
+
 def _key_rows(component, data: ShardedTensor, rank: int, lo: int, hi: int) -> torch.Tensor:
     """Rows [lo, hi) of a key component (D', k_key, n) for ``rank``: a view
     of its own shard where it holds them, else gathered from its group."""
@@ -93,10 +123,23 @@ def _key_rows(component, data: ShardedTensor, rank: int, lo: int, hi: int) -> to
                         lo, hi, 0, device)
 
 
-def contract(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: int, key: dict) -> List[torch.Tensor]:
-    """The key-switch sum of poly ``target``, (..., 2, Rn, n) < q_i, on every
-    rank: each rank's own decomposition rows on kernel B, then the limb
-    group's gather-add mod q, so every rank of a group holds the same sum."""
+Target = Union[int, ShardedTensor]
+
+
+def _target(data: ShardedTensor, target: Target, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s limbs of the poly to switch: poly ``target`` of the
+    data, or the one poly of a (..., 1, k, n) ShardedTensor sharded alike."""
+    if isinstance(target, ShardedTensor):
+        return target.shards[rank][..., 0, :, :]
+    return data.shards[rank][..., target, :, :]
+
+
+def contract(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: Target,
+             key: dict) -> List[torch.Tensor]:
+    """The key-switch sum of the target poly (an index into the data, or a
+    ShardedTensor of its own), (..., 2, Rn, n) < q_i, on every rank: each
+    rank's own decomposition rows on kernel B, then the limb group's
+    gather-add mod q, so every rank of a group holds the same sum."""
     mesh = data.mesh
     partials = []
     for r in range(mesh.size):
@@ -107,7 +150,7 @@ def contract(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: in
             partials.append(torch.zeros(local.shape[:-3] + (2, plan.D + 1, local.shape[-1]),
                                         dtype=local.dtype, device=local.device))
             continue
-        partials.append(key_switch_contract(plan, local[..., target, :, :], _key_rows(key["c0"], data, r, lo, hi),
+        partials.append(key_switch_contract(plan, _target(data, target, r), _key_rows(key["c0"], data, r, lo, hi),
                                             _key_rows(key["c1"], data, r, lo, hi), lo, hi))
     totals: List[Optional[torch.Tensor]] = [None] * mesh.size
     for group in _limb_groups(data):
@@ -117,22 +160,42 @@ def contract(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: in
     return totals
 
 
-def switch_key(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: int, key: dict) -> ShardedTensor:
-    """Key-switch poly ``target`` of sharded (..., size, k, n) data away:
-    returns polys [0, target) with the switched pair added into 0 and 1.
-    The key's components may be sharded (over the same mesh) or whole."""
+def switch_key(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: Target,
+               key: dict) -> ShardedTensor:
+    """Key-switch a poly of sharded (..., size, k, n) data away.  With an
+    index ``target``, returns polys [0, target) with the switched pair added
+    into 0 and 1.  With a ShardedTensor ``target`` (..., 1, k, n), the poly
+    switched is that one and ``data`` is the size-1 (c0) part: returns
+    (c0, 0) plus the switched pair.  The key's components may be sharded
+    (over the same mesh) or whole."""
     if cd.parms.scheme != SchemeType.CKKS:
         raise not_ported(cd.parms.scheme)
     totals = contract(plan_for, cd, data, target, key)
+    size = 2 if isinstance(target, ShardedTensor) else target
     shards = []
     for r in range(data.mesh.size):
         lo, hi = data.block(r, -2)
-        local = data.shards[r][..., :target, :, :]
-        shards.append(local.clone() if lo == hi else
-                      key_switch_tail(plan_for(cd, data.mesh.device(r)), totals[r], local, lo, hi))
+        local = data.shards[r] if isinstance(target, ShardedTensor) else data.shards[r][..., :target, :, :]
+        if lo == hi:
+            shards.append(local.new_zeros(local.shape[:-3] + (size,) + local.shape[-2:]))
+        else:
+            shards.append(key_switch_tail(plan_for(cd, data.mesh.device(r)), totals[r], local, lo, hi))
     shape = list(data.shape)
-    shape[-3] = target
+    shape[-3] = size
     return data.replace(shards, shape)
+
+
+def galois(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, galois_elt: int, key: dict) -> ShardedTensor:
+    """The Galois automorphism of sharded NTT-form (..., 2, k, n) data and
+    the key switch of its permuted c1: each rank gathers its own limbs of
+    both polys, then :func:`switch_key` with the permuted c1 as the target."""
+    tool = cd.galois_tool
+    perm = [apply_galois_ntt(d, tool.ntt_index(galois_elt, d.device)) for d in data.shards]
+    one = list(data.shape)
+    one[-3] = 1
+    c0 = data.replace([p[..., :1, :, :] for p in perm], one)
+    c1 = data.replace([p[..., 1:, :, :] for p in perm], one)
+    return switch_key(plan_for, cd, c0, c1, key)
 
 
 def rescale(cd: ContextData, data: ShardedTensor) -> ShardedTensor:

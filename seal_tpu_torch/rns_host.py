@@ -9,7 +9,7 @@ converters) arrives with the BFV slice.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 from . import numth
 from .modulus import Modulus
@@ -48,6 +48,9 @@ class HostRNSBase:
             self.inv_punctured.append(inv)
         # the decode's composition constants, built by ops/crt_compose.py once per device
         self.device_cache: dict = {}
+
+    def decompose(self, value: int) -> List[int]:
+        return [value % v for v in self.values]
 
 
 class HostRNSTool:

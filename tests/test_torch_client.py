@@ -264,9 +264,6 @@ def test_convert_round_trips(pair):
 
 
 def test_unported_client_parts_raise(pair):
-    _, p = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p["kg"].create_galois_keys()
     parms = P.EncryptionParameters(P.SchemeType.BFV)
     parms.set_poly_modulus_degree(1024)
     parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40, 40]))

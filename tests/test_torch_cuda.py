@@ -14,7 +14,8 @@ import torch
 
 from seal_tpu_torch import CoeffModulus, EncryptionParameters, SchemeType, SealContext, SecurityLevel
 from seal_tpu_torch import golden
-from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_to_numpy
+from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, plaintext_from_numpy,
+                                    relin_keys_from_numpy, u64_to_numpy)
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.modulus import Modulus
 from seal_tpu_torch.ntt_tables import build_limb_tables, four_step_tables_for
@@ -25,6 +26,7 @@ from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
 from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
 from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
 from seal_tpu_torch.ops.cuda_corner_turn import corner_turn_cuda
+from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
 from seal_tpu_torch.parallel.dist_ntt import DistNTT
 from seal_tpu_torch.parallel.mesh import DeviceMesh
 from seal_tpu_torch.parallel.remote_ntt import corner_turn_plain
@@ -156,10 +158,11 @@ def test_switch_key_kernel_cluster_sizes(card, log_n, diag):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n", [10, 13])
+@pytest.mark.parametrize("log_n", [10, 13, 15])
 def test_switch_key_kernel_barrett_guard(card, log_n):
-    """D=66 > 64 at N=1024 and N=8192: the u128 sums are reduced after 64
-    summands inside the cluster's row loop."""
+    """D=66 > 64 at N=1024, 8192 and 32768: the u128 sums are reduced after
+    64 summands inside the cluster's row loop (at N=32768 the key alone is
+    2.3 GB, and the kernel's instantiation for D > 64 spills)."""
     n = 1 << log_n
     mods = CoeffModulus.create(n, [40] * 67)
     t = build_limb_tables(log_n, mods, device=card)
@@ -188,6 +191,56 @@ def test_medium_slice_on_card_gives_medium_digest(card):
     after = (stage_cuda.launches, switch_key_contract_cuda.launches)
     assert golden.digest(u64_to_numpy(out.data)) == golden.MEDIUM_DIGEST
     assert [y - x for x, y in zip(before, after)] == [0, 1]
+
+
+def _linear_setup(ctx, device, requests):
+    ct, pt, g, r = golden.linear_inputs(ctx)
+    n = ctx.first_context_data().parms.poly_modulus_degree
+    keys = [None] * n
+    keys[golden.LINEAR_GALOIS_ELT >> 1] = g
+    S = golden.LINEAR_SCALE
+    cts = [ciphertext_from_numpy(golden.linear_inputs(ctx, i)[0] if i else ct, ctx.first_parms_id, True, S, device)
+           for i in range(requests)]
+    return (cts, plaintext_from_numpy(pt, ctx.first_parms_id, S, device),
+            galois_keys_from_numpy(keys, ctx.key_parms_id, device), relin_keys_from_numpy([r], ctx.key_parms_id, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_rotations_on_card_match_plain(card, n):
+    """rotate_vector(1) through kernel B, one ciphertext, a batch of 4 and
+    one after mod_switch_to_next (the key trimmed to the level's rows), equal
+    to the plain path on the card: one launch of kernel B each."""
+    ctx = _context(n, list(golden.GOLDEN_BITS), card) if n == 8192 else golden.medium_context(card)
+    cts, _, gk, _ = _linear_setup(ctx, card, 4)
+    ev, bev = Evaluator(ctx), BatchEvaluator(ctx)
+
+    def rotations():
+        return (ev.rotate_vector(cts[0], 1, gk).data,
+                bev.rotate_vector(CiphertextBatch.from_ciphertexts(cts), 1, gk).data,
+                ev.rotate_vector(ev.mod_switch_to_next(cts[1]), 1, gk).data)
+
+    before = switch_key_contract_cuda.launches
+    got = rotations()
+    assert switch_key_contract_cuda.launches == before + 3
+    with NTT.plain_on_card():
+        want = rotations()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1][0], got[0])
+
+
+@pytest.mark.cuda
+def test_linear_step_on_card_gives_linear_digest(card):
+    """The N=32768 linear-layer step: two launches of kernel B, none of the
+    stage kernel, the JAX package's digest."""
+    ctx = golden.medium_context(card)
+    cts, pt, gk, rk = _linear_setup(ctx, card, 1)
+    before = (stage_cuda.launches, switch_key_contract_cuda.launches)
+    out = golden.linear_layer_step(Evaluator(ctx), cts[0], pt, gk, rk)
+    after = (stage_cuda.launches, switch_key_contract_cuda.launches)
+    assert golden.digest(u64_to_numpy(out.data)) == golden.LINEAR_DIGEST
+    assert [y - x for x, y in zip(before, after)] == [0, 2]
 
 
 @pytest.mark.cuda

@@ -1,0 +1,375 @@
+"""The port's CKKS evaluator surface against the JAX package, on real encryptions.
+
+CKKS N=1024, bits [60, 40, 40, 40, 60], ``SecurityLevel.NONE``, the seeded
+BLAKE2XB factory; the JAX package encodes and encrypts (host sampling, host
+ladder), and its ciphertexts, plaintexts and keys are carried into the port
+as numpy arrays, so both evaluators see the same bits:
+
+(d) every method of the surface (negate, add, sub, add_many, square, the
+    modulus switches, add_plain, sub_plain, multiply_plain on all four
+    branches, the NTT transforms, apply_galois, rotate_vector with and
+    without a NAF decomposition, complex_conjugate) on ciphertexts at the
+    first level, after ``mod_switch_to_next`` and after ``rescale_to_next``
+    (the last two at the same level, at different scales): data, level,
+    scale and NTT form equal; public-key encryption below the first level;
+(e) the reference's rejections, with the same exception type and message;
+(h) the port's Evaluator has every method of the JAX package's.
+
+The JAX package compiles each op once per level, seconds each on the CPU
+(about 12 s for a key switch or a rescale), so the cheap ops run at every
+level, the rotations at the first level and after ``mod_switch_to_next``
+(where the Galois key is trimmed to fewer rows), and the rest at the first
+level; ``rescale_to`` is held to the port's ``rescale_to_next``, which
+``tests/test_torch_slice.py`` holds to the JAX package's.  Every
+comparison is exact.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from seal_tpu.ckks_encoder import CKKSEncoder as JaxEncoder
+from seal_tpu.context import SealContext as JaxContext
+from seal_tpu.data import Ciphertext as JaxCiphertext, Plaintext as JaxPlaintext
+from seal_tpu.encryptor import Encryptor as JaxEncryptor
+from seal_tpu.evaluator import Evaluator as JaxEvaluator
+from seal_tpu.keygen import KeyGenerator as JaxKeyGenerator
+from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
+from seal_tpu.ops import u64 as JU
+from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as JaxScheme
+from seal_tpu.random import PRNGType as JaxPRNGType, UniformRandomGeneratorFactory as JaxFactory
+
+import seal_tpu_torch as P
+from seal_tpu_torch import convert as C
+
+N = 1024
+BITS = [60, 40, 40, 40, 60]
+SEED = (1, 2, 3, 4, 5, 6, 7, 8)
+SCALE = 2.0 ** 40
+STEPS = [1, -1, 4, 0]          # 0: the conjugation; 3 has no key and rotates by NAF [-1, 4]
+
+
+def _ct_to_port(jct):
+    return C.ciphertext_from_numpy(JU.to_np_u64(jct.data), jct.parms_id, jct.is_ntt_form, jct.scale, "cpu",
+                                   jct.correction_factor)
+
+
+def _ct_to_jax(pct):
+    return JaxCiphertext(data=JU.from_np_u64(C.u64_to_numpy(pct.data)), parms_id=pct.parms_id,
+                         is_ntt_form=pct.is_ntt_form, scale=pct.scale)
+
+
+def _plain_to_port(jpt):
+    p = P.Plaintext.from_coeffs(jpt.coeff_data)
+    if jpt.is_ntt_form:
+        p = C.plaintext_from_numpy(JU.to_np_u64(jpt.rns_data), jpt.parms_id, jpt.scale, "cpu")
+    p.scale = jpt.scale
+    return p
+
+
+def _keys_to_port(jkeys, convert):
+    keys = [None if k is None else (JU.to_np_u64(k["c0"]), JU.to_np_u64(k["c1"])) for k in jkeys.keys]
+    return convert(keys, jkeys.parms_id, "cpu")
+
+
+def _same(jout, pout):
+    if isinstance(jout, JaxPlaintext):
+        assert pout.parms_id == jout.parms_id and pout.scale == jout.scale
+        np.testing.assert_array_equal(C.u64_to_numpy(pout.rns_data), JU.to_np_u64(jout.rns_data))
+        return
+    np.testing.assert_array_equal(C.u64_to_numpy(pout.data), JU.to_np_u64(jout.data))
+    assert (pout.parms_id, pout.scale, pout.is_ntt_form) == (jout.parms_id, jout.scale, jout.is_ntt_form)
+
+
+@pytest.fixture(scope="module")
+def env():
+    """Both contexts and evaluators, keys, and per level a JAX/port pair
+    of two ciphertexts and a plaintext of the ciphertexts' scale."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("SEAL_TPU_DEVICE_SAMPLING", "SEAL_TPU_DEVICE_FFT", "SEAL_TPU_DEVICE_COMPOSE"):
+            mp.setenv(var, "0")
+        jp = JaxParameters(JaxScheme.CKKS)
+        jp.set_poly_modulus_degree(N)
+        jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
+        jp.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
+        jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+        jkg = JaxKeyGenerator(jctx)
+        jgk, jrk, jpk = jkg.create_galois_keys_from_steps(STEPS), jkg.create_relin_keys(), jkg.create_public_key()
+        enc = JaxEncoder(jctx)
+        slots = np.arange(N // 2)
+        jpt = enc.encode(np.cos(slots / 7.0) + 0.25j * np.sin(slots / 5.0), SCALE)
+        # the seeded factory repeats its stream, so the second ciphertext
+        # comes from the public key (another c1)
+        ja = JaxEncryptor(jctx, secret_key=jkg.secret_key).encrypt_symmetric(jpt)
+        jb = JaxEncryptor(jctx, public_key=jpk).encrypt(enc.encode(np.linspace(-1.0, 1.0, N // 2), SCALE))
+    pp = P.EncryptionParameters(P.SchemeType.CKKS)
+    pp.set_poly_modulus_degree(N)
+    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    pp.set_random_generator(C.factory_from_settings(*C.factory_to_settings(jp.random_generator)))
+    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+    jev, pev = JaxEvaluator(jctx), P.Evaluator(pctx)
+    pgk = _keys_to_port(jgk, C.galois_keys_from_numpy)
+    prk = _keys_to_port(jrk, C.relin_keys_from_numpy)
+
+    first = {"jax": (ja, jb, jpt), "port": (_ct_to_port(ja), _ct_to_port(jb), _plain_to_port(jpt))}
+    levels = {"first": first}
+    nxt = jctx.first_context_data().next_context_data.parms_id
+    levels["switched"] = {
+        "jax": (jev.mod_switch_to_next(ja), jev.mod_switch_to_next(jb), jev.mod_switch_plain_to(jpt, nxt)),
+        "port": (pev.mod_switch_to_next(first["port"][0]), pev.mod_switch_to_next(first["port"][1]),
+                 pev.mod_switch_plain_to(first["port"][2], nxt)),
+    }
+    # after rescale_to_next: the port rescales (its rescale is held to the
+    # JAX package's in tests/test_torch_slice.py) and the JAX package gets
+    # the same bits, which spares its ~12 s compile of the rescale; the
+    # plaintext's scale is the products' over q_last, the ciphertexts'
+    rescaled = [pev.rescale_to_next(pev.multiply_plain(x, first["port"][2])) for x in first["port"][:2]]
+    q_last = pctx.first_context_data().coeff_modulus_values[-1]
+    low = pev.mod_switch_plain_to(first["port"][2], nxt)
+    low.scale = SCALE * SCALE / q_last
+    jlow = jev.mod_switch_plain_to(jpt, nxt)
+    jlow.scale = low.scale
+    levels["rescaled"] = {"port": (rescaled[0], rescaled[1], low),
+                          "jax": (_ct_to_jax(rescaled[0]), _ct_to_jax(rescaled[1]), jlow)}
+    return {"jctx": jctx, "pctx": pctx, "jev": jev, "pev": pev, "jgk": jgk, "pgk": pgk, "jrk": jrk, "prk": prk,
+            "jpk": jpk, "ppk": C.public_key_from_numpy(JU.to_np_u64(jpk.data.data), jpk.parms_id, "cpu"),
+            "levels": levels}
+
+
+def _coeff_plains(n):
+    """A general coefficient plaintext, a monomial, and a monomial whose
+    coefficient lies in the upper half (a negative value)."""
+    general = (np.arange(n, dtype=np.uint64) * np.uint64(2654435761)) % np.uint64(1 << 20)
+    mono = np.zeros(n, dtype=np.uint64)
+    mono[5] = 3
+    neg = np.zeros(n, dtype=np.uint64)
+    neg[n - 1] = np.uint64((1 << 64) - 2)
+    return {"general": general, "monomial": mono, "negative monomial": neg}
+
+
+def _run(env, side, level, op):
+    ev = env["jev" if side == "jax" else "pev"]
+    gk = env["jgk" if side == "jax" else "pgk"]
+    a, b, pt = env["levels"][level][side]
+    PT = JaxPlaintext if side == "jax" else P.Plaintext
+    coeff = {name: PT.from_coeffs(v) for name, v in _coeff_plains(N).items()}
+    for p in coeff.values():
+        p.scale = 2.0 ** 10
+    if op == "negate":
+        return ev.negate(a)
+    if op == "add":
+        return ev.add(a, b)
+    if op == "sub":
+        return ev.sub(a, b)
+    if op == "add_many":
+        return ev.add_many([a, b, a])
+    if op == "square":
+        return ev.square(a)
+    if op == "add of sizes 3 and 2":
+        b2 = b.copy()
+        b2.scale = a.scale * a.scale
+        return ev.add(ev.square(a), b2)
+    if op == "add_plain":
+        return ev.add_plain(a, pt)
+    if op == "sub_plain":
+        return ev.sub_plain(a, pt)
+    if op == "multiply_plain ntt x ntt":
+        return ev.multiply_plain(a, pt)
+    if op == "multiply_plain ntt x coeff":
+        return ev.multiply_plain(a, coeff["general"])
+    if op == "multiply_plain coeff x ntt":
+        return ev.multiply_plain(ev.transform_from_ntt(a), pt)
+    if op.startswith("multiply_plain coeff x coeff"):
+        return ev.multiply_plain(ev.transform_from_ntt(a), coeff[op.split(", ")[1]])
+    if op == "transform_plain_to_ntt":
+        return ev.transform_plain_to_ntt(coeff["general"], a.parms_id)
+    if op == "transform_from_ntt":
+        return ev.transform_from_ntt(a)
+    if op == "transform_to_ntt":
+        return ev.transform_to_ntt(ev.transform_from_ntt(a))
+    if op == "mod_switch_to_next":
+        return ev.mod_switch_to_next(a)
+    if op == "mod_reduce_to_next":
+        return ev.mod_reduce_to_next(a)
+    if op == "mod_switch_plain_to":
+        last = (env["jctx"] if side == "jax" else env["pctx"]).last_parms_id
+        return ev.mod_switch_plain_to(pt, last)
+    if op == "mod_switch_to the last level":
+        return ev.mod_switch_to(a, (env["jctx"] if side == "jax" else env["pctx"]).last_parms_id)
+    if op == "mod_reduce_to the last level":
+        return ev.mod_reduce_to(a, (env["jctx"] if side == "jax" else env["pctx"]).last_parms_id)
+    if op == "apply_galois":
+        return ev.apply_galois(a, 3, gk)
+    if op == "rotate_vector(1)":
+        return ev.rotate_vector(a, 1, gk)
+    if op == "rotate_vector(3), NAF":
+        return ev.rotate_vector(a, 3, gk)
+    if op == "rotate_vector(0)":
+        return ev.rotate_vector(a, 0, gk)
+    if op == "complex_conjugate":
+        return ev.complex_conjugate(a, gk)
+    raise AssertionError(op)
+
+
+CHEAP = ["negate", "add", "sub", "add_many", "add_plain", "sub_plain", "multiply_plain ntt x ntt",
+         "mod_switch_to_next", "mod_reduce_to_next", "mod_switch_plain_to", "rotate_vector(0)"]
+FIRST_ONLY = ["square", "add of sizes 3 and 2", "multiply_plain ntt x coeff", "multiply_plain coeff x ntt",
+              "multiply_plain coeff x coeff, general", "multiply_plain coeff x coeff, monomial",
+              "multiply_plain coeff x coeff, negative monomial", "transform_plain_to_ntt",
+              "transform_from_ntt", "transform_to_ntt", "mod_switch_to the last level",
+              "mod_reduce_to the last level", "complex_conjugate",
+              "rotate_vector(3), NAF"]
+ROTATIONS = ["apply_galois", "rotate_vector(1)"]
+CASES = ([("first", op) for op in CHEAP + FIRST_ONLY + ROTATIONS]
+         + [("switched", op) for op in CHEAP + ROTATIONS]
+         + [("rescaled", op) for op in CHEAP])
+
+
+@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
+def test_method_equals_jax(env, level, op):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
+        jout = _run(env, "jax", level, op)
+    pout = _run(env, "port", level, op)
+    _same(jout, pout)
+
+
+def test_rescale_to_is_rescale_to_next_down_the_chain(env):
+    pev, pctx = env["pev"], env["pctx"]
+    a, _, pt = env["levels"]["first"]["port"]
+    prod = pev.multiply_plain(a, pt)
+    nxt = pctx.first_context_data().next_context_data.parms_id
+    for got, want in ((pev.rescale_to(prod, nxt), pev.rescale_to_next(prod)), (pev.rescale_to(a, a.parms_id), a)):
+        assert torch.equal(got.data, want.data) and (got.parms_id, got.scale) == (want.parms_id, want.scale)
+
+
+def test_levels_are_the_ones_named(env):
+    pctx = env["pctx"]
+    chain = [pctx.first_parms_id, pctx.first_context_data().next_context_data.parms_id]
+    chain.append(pctx.get_context_data(chain[1]).next_context_data.parms_id)
+    for level, pid in zip(("first", "switched", "rescaled"), chain[:2] + chain[1:2]):
+        a, b, pt = env["levels"][level]["port"]
+        assert a.parms_id == b.parms_id == pt.parms_id == pid
+        assert a.data.is_contiguous()
+
+
+def test_public_key_encryption_below_the_first_level(env):
+    """The JAX package encrypts at the first level and switches down."""
+    jctx, pctx = env["jctx"], env["pctx"]
+    for pid in (pctx.first_context_data().next_context_data.parms_id, pctx.last_parms_id):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
+            jct = JaxEncryptor(jctx, public_key=env["jpk"]).encrypt_zero(pid)
+        pct = P.Encryptor(pctx, public_key=env["ppk"]).encrypt_zero(pid)
+        _same(jct, pct)
+        assert pct.parms_id == pid
+
+
+# -- (e) rejections ------------------------------------------------------------
+
+def _rejections(env, side):
+    ev = env["jev" if side == "jax" else "pev"]
+    gk = env["jgk" if side == "jax" else "pgk"]
+    rk = env["jrk" if side == "jax" else "prk"]
+    ctx = env["jctx" if side == "jax" else "pctx"]
+    a, b, pt = env["levels"]["first"][side]
+    low, _, low_pt = env["levels"]["switched"][side]
+    coeff = (JaxPlaintext if side == "jax" else P.Plaintext).from_coeffs([1, 2, 3])
+    scaled = a.copy()
+    scaled.scale = a.scale * 2
+    huge = pt.copy()
+    huge.scale = 2.0 ** 170
+    short = type(gk)()
+    short.parms_id = gk.parms_id
+    short.keys = [None if k is None else {"c0": k["c0"][:1] if side == "port" else (k["c0"][0][:1], k["c0"][1][:1]),
+                                          "c1": k["c1"]} for k in gk.keys]
+    wrong_id = type(gk)()
+    wrong_id.parms_id = ctx.first_parms_id
+    wrong_id.keys = gk.keys
+    seeded = a.copy()
+    seeded.seed_info = object()
+    n = N
+    return {
+        "add: parameter mismatch": (lambda: ev.add(a, low), "encrypted1 and encrypted2 parameter mismatch"),
+        "add: scale mismatch": (lambda: ev.add(a, scaled), "scale mismatch"),
+        "add: NTT form mismatch": (lambda: ev.add(a, ev.transform_from_ntt(b)), "NTT form mismatch"),
+        "add_many: empty": (lambda: ev.add_many([]), "encrypteds cannot be empty"),
+        "add_plain: coefficient plaintext": (lambda: ev.add_plain(a, coeff), "CKKS operands must be in NTT form"),
+        "add_plain: parameter mismatch": (lambda: ev.add_plain(a, low_pt), "encrypted and plain parameter mismatch"),
+        "sub_plain: scale mismatch": (lambda: ev.sub_plain(scaled, pt), "scale mismatch"),
+        "multiply_plain: parameter mismatch": (lambda: ev.multiply_plain(a, low_pt),
+                                               "encrypted and plain parameter mismatch"),
+        "multiply_plain: scale out of bounds": (lambda: ev.multiply_plain(a, huge), "scale out of bounds"),
+        "transform_to_ntt: already NTT": (lambda: ev.transform_to_ntt(a), "encrypted is already in NTT form"),
+        "transform_from_ntt: not NTT": (lambda: ev.transform_from_ntt(ev.transform_from_ntt(a)),
+                                        "encrypted is not in NTT form"),
+        "transform_plain_to_ntt: already NTT": (lambda: ev.transform_plain_to_ntt(pt, a.parms_id),
+                                                "plain is already in NTT form"),
+        "mod_switch_to_next: end of chain": (lambda: ev.mod_switch_to_next(ev.mod_switch_to(a, ctx.last_parms_id)),
+                                             "end of modulus switching chain reached"),
+        "mod_switch_to: higher level": (lambda: ev.mod_switch_to(low, ctx.first_parms_id),
+                                        "cannot switch to higher level modulus"),
+        "mod_switch_plain_to: coefficient plaintext": (lambda: ev.mod_switch_plain_to(coeff, ctx.last_parms_id),
+                                                       "plain is not in NTT form"),
+        "mod_switch_plain_to: higher level": (lambda: ev.mod_switch_plain_to(low_pt, ctx.first_parms_id),
+                                              "cannot switch to higher level modulus"),
+        "rescale_to: higher level": (lambda: ev.rescale_to(low, ctx.first_parms_id),
+                                     "cannot switch to higher level modulus"),
+        "apply_galois: even element": (lambda: ev.apply_galois(a, 4, gk), "Galois element is not valid"),
+        "apply_galois: element too large": (lambda: ev.apply_galois(a, 2 * n + 1, gk), "Galois element is not valid"),
+        "apply_galois: size 3": (lambda: ev.apply_galois(ev.multiply(a, b), 3, gk), "encrypted size must be 2"),
+        "apply_galois: key not present": (lambda: ev.apply_galois(a, 9, gk), "Galois key not present"),
+        "apply_galois: keys of another level": (lambda: ev.apply_galois(a, 3, wrong_id),
+                                                "galois_keys is not valid for encryption parameters"),
+        "apply_galois: too few key rows": (lambda: ev.apply_galois(a, 3, short),
+                                           "key-switching keys are invalid for encryption parameters"),
+        "apply_galois: not NTT": (lambda: ev.apply_galois(ev.transform_from_ntt(a), 3, gk),
+                                  "CKKS encrypted must be in NTT form"),
+        "rotate_vector: no key, no NAF": (lambda: ev.rotate_vector(a, 2, gk), "Galois key not present"),
+        "rotate_vector: step too large": (lambda: ev.rotate_vector(a, n // 2, gk), "step count too large"),
+        "rotate_rows: CKKS": (lambda: ev.rotate_rows(a, 1, gk), "unsupported scheme"),
+        "rotate_columns: CKKS": (lambda: ev.rotate_columns(a, gk), "unsupported scheme"),
+        "relinearize: keys of another level": (lambda: ev.relinearize(ev.multiply(a, b), wrong_id),
+                                               "relin_keys is not valid for encryption parameters"),
+        "multiply_many: CKKS": (lambda: ev.multiply_many([a, b], rk), "unsupported scheme"),
+        "seeded ciphertext": (lambda: ev.negate(seeded), "ciphertext is not valid for encryption parameters"),
+    }
+
+
+def test_rejections_equal_jax(env):
+    jcases, pcases = _rejections(env, "jax"), _rejections(env, "port")
+    assert jcases.keys() == pcases.keys()
+    for name in jcases:
+        for side, cases in (("jax", jcases), ("port", pcases)):
+            fn, message = cases[name]
+            with pytest.raises(ValueError, match=re.escape(message)):
+                fn()
+
+
+def test_bfv_contexts_raise_not_ported():
+    parms = P.EncryptionParameters(P.SchemeType.BFV)
+    parms.set_poly_modulus_degree(64)
+    parms.set_coeff_modulus(P.CoeffModulus.create(64, [40, 40, 40]))
+    parms.set_plain_modulus(P.Modulus(257))
+    ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
+    ev = P.Evaluator(ctx)
+    ct = P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), ctx.first_parms_id, False, 1.0)
+    gk = P.GaloisKeys()
+    gk.parms_id = ctx.key_parms_id
+    for call in (lambda: ev.rotate_rows(ct, 1, gk), lambda: ev.rotate_columns(ct, gk),
+                 lambda: ev.multiply_plain(ct, P.Plaintext.from_coeffs([1])), lambda: ev.mod_switch_to_next(ct),
+                 lambda: ev.multiply_many([ct, ct], None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    with pytest.raises(ValueError, match="unsupported scheme"):
+        ev.rotate_vector(ct, 1, gk)
+
+
+# -- (h) the surface ---------------------------------------------------------------
+
+def test_evaluator_has_every_method_of_the_jax_package():
+    jax_methods = {m for m in dir(JaxEvaluator) if not m.startswith("_") and callable(getattr(JaxEvaluator, m))}
+    port_methods = {m for m in dir(P.Evaluator) if not m.startswith("_") and callable(getattr(P.Evaluator, m))}
+    assert jax_methods <= port_methods, sorted(jax_methods - port_methods)

@@ -14,7 +14,14 @@ made with numpy from a seed and carried across as numpy uint64 arrays:
 (d) the sharded contraction of ``tests/test_shard_ops.py``, as relinearize
     runs it, against the one-device contraction and exact integers;
 (e) placement: meshes, the uneven limb split after a rescale, the
-    collectives' layouts, and what raises.
+    collectives' layouts, and what raises;
+(f) the batched Galois ops (apply_galois, rotate_vector with and without a
+    NAF decomposition), multiply_plain on its four branches, add_plain,
+    sub_plain, the NTT transforms and the limb drops, on a batch of 3: equal
+    to the port's Evaluator on each ciphertext, to the JAX package's batch
+    (the Galois ops, the NTT-form plaintext ops and the limb drop), and, on
+    the (data 4, limb 2) mesh (one data rank empty), to the batch on one
+    device.
 
 Every comparison is exact equality.
 """
@@ -25,7 +32,7 @@ import pytest
 import torch
 
 from seal_tpu.context import SealContext as JaxContext
-from seal_tpu.data import RelinKeys as JaxRelinKeys
+from seal_tpu.data import GaloisKeys as JaxGaloisKeys, Plaintext as JaxPlaintext, RelinKeys as JaxRelinKeys
 from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
 from seal_tpu.ops import u64 as JU
 from seal_tpu.parallel import BatchEvaluator as JaxBatchEvaluator
@@ -34,7 +41,8 @@ from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as
 
 import seal_tpu_torch as P
 from seal_tpu_torch.ckks_bodies import key_switch_contract
-from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_from_numpy, u64_to_numpy
+from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, plaintext_from_numpy,
+                                    relin_keys_from_numpy, u64_from_numpy, u64_to_numpy)
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.parallel import collectives as C
 from seal_tpu_torch.parallel import sharded
@@ -268,10 +276,11 @@ def test_collectives_follow_lax_layouts():
 def test_unported_batch_methods_name_their_roadmap_item(state):
     bev = BatchEvaluator(state["ctx"])
     b1, _ = _batches(state)
-    for method in ("mod_switch_to_next", "apply_galois", "rotate_vector", "multiply_plain", "add_plain",
-                   "transform_to_ntt", "transform_from_ntt", "mod_reduce_to_next", "multiply_many"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(bev, method)(b1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bev.multiply_many([b1, b1], state["rk"])
+    for method, args in (("rotate_rows", (1, None)), ("rotate_columns", (None,))):
+        with pytest.raises(ValueError, match="unsupported scheme"):
+            getattr(bev, method)(b1, *args)
     bfv = P.EncryptionParameters(P.SchemeType.BFV)
     bfv.set_poly_modulus_degree(N)
     bfv.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
@@ -281,3 +290,121 @@ def test_unported_batch_methods_name_their_roadmap_item(state):
     batch = CiphertextBatch(data, bctx.first_parms_id, False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchEvaluator(bctx).multiply(batch, batch)
+    for method, args in (("rotate_rows", (1, None)), ("rotate_columns", (None,)),
+                         ("multiply_plain", (P.Plaintext.from_coeffs([1]),)), ("mod_switch_to_next", ())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(BatchEvaluator(bctx), method)(batch, *args)
+
+
+# -- (f) the batched Galois, plaintext and transform methods ---------------------
+
+GB = 3
+GALOIS_STEPS = {1: 3, -1: None, 4: None}          # step -> element; 3 rotates by NAF [-1, 4]
+# the ops held to the JAX package's BatchEvaluator here; each compiles there
+# once per level in seconds, so the NTT-heavy ones (the coefficient-form
+# multiply_plain, the transforms) and the rotation one level down are held to
+# the port's Evaluator, which tests/test_torch_evaluator.py holds to the JAX
+# package's
+JAX_BATCH_OPS = ("apply_galois", "rotate_vector(1)", "rotate_vector(3), NAF", "multiply_plain ntt x ntt",
+                 "add_plain", "sub_plain", "mod_switch_to_next")
+
+
+@pytest.fixture(scope="module")
+def galois_state():
+    """A batch of 3, a plaintext, a coefficient plaintext, Galois keys of
+    uniform residues, and the JAX package's batched outputs."""
+    jp = JaxParameters(JaxScheme.CKKS)
+    jp.set_poly_modulus_degree(N)
+    jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
+    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    pp = P.EncryptionParameters(P.SchemeType.CKKS)
+    pp.set_poly_modulus_degree(N)
+    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+    rng = np.random.default_rng(6)
+    qv = pctx.first_context_data().coeff_modulus_values
+    key_q = pctx.key_context_data().coeff_modulus_values
+    data = _residues(rng, qv, (GB, 2))
+    plain = _residues(rng, qv, ())
+    coeffs = {"general": rng.integers(0, 1 << 20, N, dtype=np.uint64),
+              "monomial": np.array([0] * 7 + [5], dtype=np.uint64)}
+    tool = pctx.first_context_data().galois_tool
+    elts = [tool.get_elt_from_step(s) for s in GALOIS_STEPS]
+    keys = [None] * N
+    for e in elts:
+        keys[(e - 1) >> 1] = (_residues(rng, key_q, (len(qv),)), _residues(rng, key_q, (len(qv),)))
+
+    jgk = JaxGaloisKeys()
+    jgk.parms_id = jctx.key_parms_id
+    jgk.keys = [None if k is None else {"c0": JU.from_np_u64(k[0]), "c1": JU.from_np_u64(k[1])} for k in keys]
+    jpt = JaxPlaintext()
+    jpt.parms_id, jpt.scale, jpt.rns_data = jctx.first_parms_id, SCALE, JU.from_np_u64(plain)
+    jbev = JaxBatchEvaluator(jctx)
+    jb = JaxCiphertextBatch(JU.from_np_u64(data), jctx.first_parms_id, True, SCALE, 1)
+    want = {}
+    for name, fn in _galois_ops(jbev, jpt, JaxPlaintext, coeffs, jgk):
+        if name in JAX_BATCH_OPS:
+            out = fn(jb)
+            want[name] = (JU.to_np_u64(out.data), out.parms_id, out.scale, out.is_ntt_form)
+    pt = plaintext_from_numpy(plain, pctx.first_parms_id, SCALE, "cpu")
+    return {"ctx": pctx, "data": data, "pt": pt, "coeffs": coeffs,
+            "gk": galois_keys_from_numpy(keys, pctx.key_parms_id, "cpu"), "jax": want}
+
+
+def _galois_ops(ev, pt, plain_type, coeffs, gk):
+    """(name, fn(batch or ciphertext)) for each method, through the methods
+    the Evaluator and the BatchEvaluator share."""
+    coeff = {name: plain_type.from_coeffs(v) for name, v in coeffs.items()}
+    for p in coeff.values():
+        p.scale = 2.0 ** 8
+    return [
+        ("apply_galois", lambda b: ev.apply_galois(b, 3, gk)),
+        ("rotate_vector(1)", lambda b: ev.rotate_vector(b, 1, gk)),
+        ("rotate_vector(3), NAF", lambda b: ev.rotate_vector(b, 3, gk)),
+        ("multiply_plain ntt x ntt", lambda b: ev.multiply_plain(b, pt)),
+        ("multiply_plain ntt x coeff", lambda b: ev.multiply_plain(b, coeff["general"])),
+        ("multiply_plain coeff x ntt", lambda b: ev.multiply_plain(ev.transform_from_ntt(b), pt)),
+        ("multiply_plain coeff x coeff, general", lambda b: ev.multiply_plain(ev.transform_from_ntt(b),
+                                                                              coeff["general"])),
+        ("multiply_plain coeff x coeff, monomial", lambda b: ev.multiply_plain(ev.transform_from_ntt(b),
+                                                                               coeff["monomial"])),
+        ("add_plain", lambda b: ev.add_plain(b, pt)),
+        ("sub_plain", lambda b: ev.sub_plain(b, pt)),
+        ("transform_to_ntt", lambda b: ev.transform_to_ntt(ev.transform_from_ntt(b))),
+        ("mod_switch_to_next", lambda b: ev.mod_switch_to_next(b)),
+        ("mod_reduce_to_next, rotated", lambda b: ev.rotate_vector(ev.mod_reduce_to_next(b), 1, gk)),
+    ]
+
+
+def _galois_batch(s):
+    return CiphertextBatch(u64_from_numpy(s["data"], "cpu"), s["ctx"].first_parms_id, True, SCALE)
+
+
+@pytest.mark.parametrize("op", range(13))
+def test_batched_galois_and_plain_ops_match_jax_and_single_evaluator(galois_state, op):
+    s = galois_state
+    bev = BatchEvaluator(s["ctx"])
+    name, fn = _galois_ops(bev, s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op]
+    got = fn(_galois_batch(s))
+    if name in JAX_BATCH_OPS:
+        data, parms_id, scale, ntt = s["jax"][name]
+        np.testing.assert_array_equal(u64_to_numpy(got.data), data, err_msg=name)
+        assert (got.parms_id, got.scale, got.is_ntt_form) == (parms_id, scale, ntt)
+    _, single = _galois_ops(Evaluator(s["ctx"]), s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op]
+    for i in range(GB):
+        a = ciphertext_from_numpy(s["data"][i], s["ctx"].first_parms_id, True, SCALE, "cpu")
+        want = single(a)
+        assert torch.equal(got[i].data, want.data) and (got.scale, got.parms_id) == (want.scale, want.parms_id)
+
+
+@pytest.mark.parametrize("op", range(13))
+def test_batched_galois_and_plain_ops_on_a_mesh_match_one_device(galois_state, op):
+    s = galois_state
+    hem = make_mesh(8, devices=CPU8, limb_parallel=2)
+    bev, one = BatchEvaluator(s["ctx"], hem), BatchEvaluator(s["ctx"])
+    name, fn = _galois_ops(bev, s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op]
+    got = fn(bev.shard(_galois_batch(s)))
+    assert got.data.spec == hem.ct_batch_spec()
+    want = _galois_ops(one, s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op][1](_galois_batch(s))
+    assert torch.equal(got.unshard().data, want.data), name
+    assert (got.scale, got.parms_id, got.is_ntt_form) == (want.scale, want.parms_id, want.is_ntt_form)
