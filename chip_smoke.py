@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's CKKS paths on one NVIDIA card, kernels checked.
+"""Drive the port's CKKS and BFV paths on one NVIDIA card, kernels checked.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and
@@ -94,7 +94,33 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        the secret key, the step run as one batch, decrypted and decoded
        within 1e-3 of ``np.roll(v*v, -1) * v``;
    (c) ``mod_switch_to_next`` then ``rotate_vector(1)`` on the card (kernel
-       B with the key's rows trimmed to the level), equal to the plain path.
+       B with the key's rows trimmed to the level), equal to the plain path;
+11. BFV (``golden.bfv_context``: ``CoeffModulus.bfv_default(n)`` at
+   ``SecurityLevel.TC128``, t = ``PlainModulus.batching(n, 20)``), at N=8192
+   (k=4, a 5-prime Bsk, D=4, Rn=5) and N=32768 (k=15, 16, D=15, Rn=16):
+   (a) kernel A bit-exact against its plain version at the BFV request's
+       transforms (the BEHZ forward NTT over q U Bsk, the t-scaled inverse
+       over q U Bsk, the key-switch tail's two inverse NTTs), one request's
+       and a batch's; kernel B with no diagonal (a coefficient-form target)
+       at D=4, Rn=5 and D=15, Rn=16, one ciphertext and a batch; times and
+       bounds as in phases 2 and 3;
+   (b, c) ``pipeline.build_bfv_mult_relin`` (the BEHZ multiply, then
+       relinearization) on splitmix inputs equal to the plain path on the
+       card and to ``golden.BFV_DIGEST`` / ``BFV_MEDIUM_DIGEST``; 8 requests
+       at N=8192 (4 at N=32768) of Evaluator multiply -> relinearize
+       sequentially and as one ``BatchEvaluator`` batch, the batch equal to
+       the sequential outputs; kernel A 4 launches and kernel B 1 per request
+       and per batch, no stage-kernel launch; ms per request, launches per
+       request, device-busy share and a profiler split (kernel A, kernel B,
+       the BEHZ base conversions timed alone, the rest);
+   (d) real keys at N=8192 from a seeded BLAKE2XB factory (secret, public,
+       relinearization, and Galois keys for rotate_rows(1) and
+       rotate_columns) equal to the plain path on the card; two BatchEncoder
+       vectors encrypted with the public key; multiply -> relinearize ->
+       rotate_rows(1) -> rotate_columns -> mod_switch_to_next equal to the
+       plain path, decoded equal to numpy's slot-wise product mod t with the
+       rows rotated and the columns swapped; the invariant noise budget
+       before and after, above 0.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -129,6 +155,8 @@ OPS_ADD64 = 2
 # One Harvey butterfly: three u64 multiplies (Shoup) and six adds,
 # subtracts and conditional subtractions.
 OPS_BUTTERFLY = 3 * OPS_MUL64 + 6 * OPS_ADD64
+# the seed of phase 11's slot vectors
+BFV_SLOT_SEED = 11
 
 
 def check(ok, what):
@@ -819,6 +847,269 @@ def linear_phase():
             "device_busy_ms_per_ct_batched": None if batch_busy is None else batch_busy / requests,
             "ntt_launches_per_request": one_launches["ntt"]}
 
+def bfv_phase(gen):
+    """Phase 11: BFV on the card (``golden.bfv_context``: bfv_default(n) at
+    SecurityLevel.TC128, t = PlainModulus.batching(n, 20)).  Returns the
+    BFV entries of kernels A and B for the kernels' JSON line."""
+    from seal_tpu_torch import Decryptor, Encryptor, KeyGenerator, PRNGType, UniformRandomGeneratorFactory
+    from seal_tpu_torch import golden
+    from seal_tpu_torch.context import SealContext
+    from seal_tpu_torch.convert import ciphertext_from_numpy, relin_keys_from_numpy, u64_to_numpy
+    from seal_tpu_torch.encoders import BatchEncoder
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from seal_tpu_torch.ops import ntt as NTT
+    from seal_tpu_torch.ops import rns as R
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
+    from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
+    from seal_tpu_torch.ops.rns import slice_limbs
+    from seal_tpu_torch.params import EncryptionParameters, SchemeType
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+    from seal_tpu_torch.pipeline import build_bfv_mult_relin
+
+    def counted(fn):
+        """fn() with the three counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+
+    result = {"ntt": {}, "switch_key": {}}
+    max_err = {"ntt": 0, "switch_key": 0}
+    for n, requests in ((golden.BFV_N, 8), (golden.BFV_MEDIUM_N, 4)):
+        t_n = time.perf_counter()
+        tag = f"[bfv N={n}]"
+        ctx = golden.bfv_context(n)                      # the default device: the card
+        cd = ctx.first_context_data()
+        k = len(cd.coeff_modulus_values)
+        behz_t = cd.behz_limb_tables()
+        rows = behz_t.q.shape[0]
+        key_t = ctx.key_context_data().limb_tables()
+        ev, bev = Evaluator(ctx), BatchEvaluator(ctx)
+        plan = ev._plan(cd)
+        D, sel = plan.D, plan.sel_tables
+        Rn = sel.q.shape[0]
+        print(f"{tag} {golden.BFV_CHAIN}: t={cd.parms.plain_modulus.value}, k={k}, Bsk {rows - k} primes, D={D}, "
+              f"Rn={Rn}")
+
+        # ---- (a) kernels A and B at BFV's shapes against their plain versions
+        # (label, tables, shape, inverse); the first four are one request's
+        cases = [("BEHZ forward NTT over q U Bsk", behz_t, (4, rows, n), False),
+                 ("BEHZ t-scaled inverse NTT over q U Bsk", behz_t, (3, rows, n), True),
+                 ("key-switch tail: iNTT mod the special prime", slice_limbs(key_t, k, k + 1), (2, 1, n), True),
+                 ("key-switch tail: iNTT of the sum", slice_limbs(key_t, 0, k), (2, k, n), True)]
+        cases += [(f"batch of {requests}, {label}", t, (requests, *shape), inverse)
+                  for label, t, shape, inverse in cases[:4]]
+        per_request = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+        for i, (label, t, shape, inverse) in enumerate(cases):
+            x = lazy_input(t, shape, 2 if inverse else 4, gen)
+            plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
+            got = ntt_cuda(x, t, inverse)
+            want = plain_fn()
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            check(err == 0, f"kernel A disagrees with its plain version at N={n}, {label}: max abs err {err}")
+            ms, events_ms = kernel_ms(lambda: ntt_cuda(x, t, inverse), 50)
+            plain_ms = cuda_ms(plain_fn, 3, warmup=1)
+            nbytes, ops = ntt_work(x.numel() // n, shape[-2], t.log_n)
+            b, by = bound_ms(nbytes, ops)
+            print(f"{tag} kernel A, {label} {'inverse' if inverse else 'forward'} {tuple(shape)}: bit-exact; kernel "
+                  f"{ms * 1e3:.2f} us device time, {events_ms * 1e3:.2f} us back to back by events; plain "
+                  f"{plain_ms * 1e3:.1f} us by events; bound {b * 1e3:.3f} us ({by})")
+            if i < 4:
+                per_request["ms"] += ms
+                per_request["plain_ms"] += plain_ms
+                per_request["bytes"] += nbytes
+                per_request["ops"] += ops
+        b_a, by_a = bound_ms(per_request["bytes"], per_request["ops"])
+        a_entry = {"ms": per_request["ms"], "plain_ms": per_request["plain_ms"], "bound_ms": b_a, "bound_by": by_a,
+                   "max_abs_err": 0}
+        b_entry = {}
+        key = lazy_input(sel, (2, D, Rn, n), 1, gen)
+        for label, shape in (("one request", (D, n)), (f"batch of {requests}", (requests, D, n))):
+            t_c = lazy_input(cd.limb_tables(), shape, 1, gen)
+            fn = lambda: switch_key_contract_cuda(t_c, None, key, sel, plan.need_reduce)
+            got = fn()
+            want = switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            check(err == 0, f"kernel B disagrees with its plain version at N={n}, {label}, no diagonal: {err}")
+            ms, events_ms = kernel_ms(fn, 20)
+            plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce), 2, warmup=1)
+            B = t_c.shape[0] if t_c.dim() == 3 else 1
+            nbytes, ops = switch_key_work(D, D, Rn, cd.log_n, False, B)
+            b, by = bound_ms(nbytes, ops)
+            print(f"{tag} kernel B, {label}, no diagonal (B={B}, D={D}, Rn={Rn}): bit-exact; kernel {ms * 1e3:.2f} us "
+                  f"device time ({ms * 1e3 / B:.2f} us per ciphertext), {events_ms * 1e3:.2f} us back to back by "
+                  f"events; plain {plain_ms * 1e3:.1f} us by events; bound {b * 1e3:.3f} us ({by})")
+            if not b_entry:
+                b_entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "max_abs_err": 0}
+
+        # ---- (b, c) the requests: multiply -> relinearize, splitmix inputs
+        rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, "cuda")
+        cts = []
+        for r in range(requests):
+            d1, d2 = golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)
+            cts.append((ciphertext_from_numpy(d1, ctx.first_parms_id, False, 1.0, "cuda"),
+                        ciphertext_from_numpy(d2, ctx.first_parms_id, False, 1.0, "cuda")))
+        fn = build_bfv_mult_relin(ctx)
+        key2 = rk.key(2)
+        one, one_launches = counted(lambda: fn(cts[0][0].data, cts[0][1].data, key2["c0"], key2["c1"]))
+        with NTT.plain_on_card():
+            ref0 = fn(cts[0][0].data, cts[0][1].data, key2["c0"], key2["c1"])
+        check(torch.equal(one, ref0), f"{tag} build_bfv_mult_relin differs from the plain path on the card")
+        check(tuple(one.shape) == (2, k, n), f"{tag} build_bfv_mult_relin: shape {tuple(one.shape)}")
+        dig = golden.digest(u64_to_numpy(one))
+        want_dig = golden.BFV_DIGEST if n == golden.BFV_N else golden.BFV_MEDIUM_DIGEST
+        check(dig == want_dig, f"{tag} BFV digest mismatch: {dig}")
+        # per request: kernel A for the BEHZ forward and t-scaled inverse
+        # transforms (both bases in one launch each) and the key-switch tail's
+        # two inverse transforms; kernel B once; no stage kernel
+        check(one_launches == (4, 1, 0), f"{tag} one request launched (A, B, stage) {one_launches}; expected (4, 1, 0)")
+
+        def serve():
+            return [ev.relinearize(ev.multiply(a, b), rk) for a, b in cts]
+
+        def serve_batch():
+            b1 = CiphertextBatch.from_ciphertexts([a for a, _ in cts])
+            b2 = CiphertextBatch.from_ciphertexts([b for _, b in cts])
+            return bev.relinearize(bev.multiply(b1, b2), rk)
+
+        # the BEHZ steps alone at a request's shapes and the batch's: their
+        # device time is the profiler split's "base conversions"
+        def behz(lead):
+            x = lazy_input(cd.limb_tables(), (*lead, 4, k, n), 1, gen)
+            joined = lazy_input(behz_t, (*lead, 3, rows, n), 1, gen)
+            tool = cd.rns_tool
+            return lambda: (R.sm_mrq(R.fastbconv_m_tilde(x, tool), tool), R.fastbconv_sk(R.fast_floor(joined, tool), tool))
+
+        groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel"}
+        timings = {}
+        for label, run, count, expect, lead in (("sequential", serve, requests, (4 * requests, requests, 0), ()),
+                                                (f"one batch of {requests}", serve_batch, requests, (4, 1, 0),
+                                                 (requests,))):
+            run()
+            outs, launches = counted(run)
+            check(launches == expect, f"{tag} {label}: launched (A, B, stage) {launches}; expected {expect}")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / count)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            by_name, split = device_split(prof, groups)
+            n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+            behz_ms = device_ms(behz(lead), 3)
+            behz_ms = None if behz_ms is None else behz_ms * (count if not lead else 1)
+            if by_name:
+                busy = sum(by_name.values()) / 1e3
+                conv = "not measured" if behz_ms is None else f"{behz_ms / count:.4f} ms"
+                other = (busy - sum(split.values()) / 1e3 - (behz_ms or 0.0)) / count
+                prof_line = (f"under the profiler {n_dev / count:.1f} device launches per request, device busy "
+                             f"{busy / count:.3f} ms per request, {100 * busy / wall_ms:.1f}% of wall {wall_ms:.3f} ms; "
+                             f"per request " + ", ".join(f"{g} {v / 1e3 / count:.4f} ms" for g, v in split.items())
+                             + f", the BEHZ base conversions and their tails (timed alone) {conv}, other kernels "
+                             f"(plain PyTorch elementwise arithmetic, copies) {other:.3f} ms")
+            else:
+                busy, prof_line = None, "the profiler recorded no device time: not measured"
+            median = sorted(times)[1]
+            print(f"{tag} {label}: launches for {count} requests: kernel A {launches[0]}, kernel B {launches[1]}, "
+                  f"stage kernel {launches[2]}; ms per request over 3 runs {', '.join(f'{t:.3f}' for t in times)} "
+                  f"(median {median:.3f}); {prof_line}")
+            timings[label] = {"outs": outs, "launches": launches, "ms_per_request": median,
+                              "device_busy_ms_per_request": None if busy is None else busy / count}
+        seq = timings["sequential"]
+        batch = timings[f"one batch of {requests}"]
+        for r in range(requests):
+            check(torch.equal(batch["outs"].data[r], seq["outs"][r].data),
+                  f"{tag} batched request {r} differs from the sequential one")
+        check(torch.equal(seq["outs"][0].data, one), f"{tag} the Evaluator's request 0 differs from the pipeline's")
+        print(f"{tag} {requests} requests of multiply -> relinearize: request 0 equal to the plain path on the card "
+              f"and to the JAX package's digest; the batch equal to the sequential outputs; kernel A 4 launches per "
+              f"request and 4 per batch, kernel B 1 and 1, no stage-kernel launch; "
+              f"{time.perf_counter() - t_n:.1f} s")
+        name = f"n{n}"
+        result["ntt"][name] = dict(a_entry, launches_per_request=one_launches[0],
+                                   launches_per_batch=batch["launches"][0])
+        result["switch_key"][name] = dict(b_entry, launches_per_request=one_launches[1],
+                                          launches_per_batch=batch["launches"][1],
+                                          ms_per_request_sequential=seq["ms_per_request"],
+                                          ms_per_request_batched=batch["ms_per_request"],
+                                          device_busy_ms_per_request_batched=batch["device_busy_ms_per_request"])
+        del cts, rk, one, ref0, timings, seq, batch, ev, bev, plan, ctx
+        torch.cuda.empty_cache()
+
+    # ---- (d) real keys at N=8192 ---------------------------------------------
+    t_d = time.perf_counter()
+    n = golden.BFV_N
+    parms = EncryptionParameters(SchemeType.BFV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_plain_modulus(PlainModulus.batching(n, golden.BFV_PLAIN_BITS))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, (21, 22, 23, 24, 25, 26, 27, 28)))
+    rctx = SealContext(parms, True, SecurityLevel.TC128)
+    tv = parms.plain_modulus.value
+
+    def keygen():
+        kg = KeyGenerator(rctx)
+        return kg.secret_key, kg.create_public_key(), kg.create_relin_keys(), kg.create_galois_keys_from_steps([1, 0])
+
+    with NTT.plain_on_card():
+        ref_keys = keygen()
+    sk, pk, rk, gk = keygen()
+    columns = 2 * n - 1
+    for name, got, want in (("secret key", sk.data, ref_keys[0].data), ("public key", pk.data.data, ref_keys[1].data.data),
+                            ("relin key", rk.key(2)["c0"], ref_keys[2].key(2)["c0"]),
+                            ("row Galois key", gk.key(3)["c1"], ref_keys[3].key(3)["c1"]),
+                            ("column Galois key", gk.key(columns)["c0"], ref_keys[3].key(columns)["c0"])):
+        check(torch.equal(got, want), f"real keys: the {name} differs from the plain path on the card")
+    del ref_keys
+    rng = np.random.default_rng(BFV_SLOT_SEED)
+    va = rng.integers(0, tv, size=n, dtype=np.uint64)
+    vb = rng.integers(0, tv, size=n, dtype=np.uint64)
+    be = BatchEncoder(rctx)
+    enc = Encryptor(rctx, public_key=pk)
+    ca, cb = enc.encrypt(be.encode(va)), enc.encrypt(be.encode(vb))
+    dec = Decryptor(rctx, sk)
+    budget_before = dec.invariant_noise_budget(ca)
+    ev = Evaluator(rctx)
+
+    def chain():
+        prod = ev.relinearize(ev.multiply(ca, cb), rk)
+        return ev.mod_switch_to_next(ev.rotate_columns(ev.rotate_rows(prod, 1, gk), gk))
+
+    out, launches = counted(chain)
+    with NTT.plain_on_card():
+        ref = chain()
+    check(torch.equal(out.data, ref.data), "real keys: the chain differs from the plain path on the card")
+    # kernel B for the relinearization and the two rotations; kernel A twice
+    # for the multiply and twice in each key switch's tail
+    check(launches == (8, 3, 0), f"real keys: the chain launched (A, B, stage) {launches}; expected (8, 3, 0)")
+    budget_after = dec.invariant_noise_budget(out)
+    check(budget_after > 0, f"real keys: the noise budget is spent ({budget_after} bits)")
+    prod = (va.astype(object) * vb.astype(object) % tv).astype(np.uint64)
+    half = n // 2
+    rows_rotated = np.concatenate([np.roll(prod[:half], -1), np.roll(prod[half:], -1)])
+    want = np.concatenate([rows_rotated[half:], rows_rotated[:half]])
+    got = be.decode(dec.decrypt(out))
+    check(got.shape == (n,) and np.array_equal(got, want),
+          "real keys: the decoded chain differs from the slot-wise product mod t, rows rotated and columns swapped")
+    print(f"[bfv real keys] N={n}, t={tv}: keygen (seeded BLAKE2XB; secret, public, relinearization, and Galois keys "
+          f"for rotate_rows(1) and rotate_columns) equal to the plain path on the card; two BatchEncoder vectors "
+          f"encrypted with the public key; multiply -> relinearize -> rotate_rows(1) -> rotate_columns -> "
+          f"mod_switch_to_next (kernel A {launches[0]}, kernel B {launches[1]}) equal to the plain path, decrypted and "
+          f"decoded equal to numpy's slot-wise product mod t with rows rotated and columns swapped; invariant noise "
+          f"budget {budget_before} bits before, {budget_after} after; {time.perf_counter() - t_d:.1f} s")
+    return result
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1288,17 +1579,22 @@ def main():
     linear = linear_phase()
     print(f"[linear] phase 10 in {time.time() - t_linear:.1f} s")
 
+    # ---- phase 11: BFV at N=8192 and N=32768 -------------------------------
+    t_bfv = time.time()
+    bfv = bfv_phase(gen)
+    print(f"[bfv] phase 11 in {time.time() - t_bfv:.1f} s")
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:227", "launches": launches["ntt"],
          "max_abs_err": max_err["ntt"], "ms": ntt_totals["ms"], "plain_ms": ntt_totals["plain_ms"],
-         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None},
+         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"]},
         {"name": "switch_key", "route": "cuda", "source": "seal_tpu_torch/csrc/switch_key.cu",
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
          "max_abs_err": max(max_err["switch_key"], sk_medium["max_abs_err"]), "ms": sk_main["ms"],
          "plain_ms": sk_main["plain_ms"], "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"],
-         "library_ms": None, "n32768": sk_medium, "linear_layer": linear},
+         "library_ms": None, "n32768": sk_medium, "linear_layer": linear, "bfv": bfv["switch_key"]},
         {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
@@ -1316,7 +1612,9 @@ def main():
     print(f"[done] kernel B batched over phase 4's {len(cts)} requests: {sk_batched_ms * 1e3:.2f} us per request "
           f"by events; kernel B's n32768 entry: phase 9's call of one N=32768 request (profiler device time), its "
           f"plain version, its bound, its launches in the counted sequential run, and staged_ms, the device time "
-          f"of the staged key switch it replaces (every kernel summed)")
+          f"of the staged key switch it replaces (every kernel summed); the bfv objects of kernels A and B: phase "
+          f"11's calls of one BFV request at N=8192 and N=32768 (A: its four transforms summed; B: one call, no "
+          f"diagonal), their launches per request and per batch")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The ring bodies of the CKKS server ops, on local tensors.
+"""The ring bodies of the server ops, on local tensors.
 
 The dyadic convolution of ``multiply``, the two halves of the key switch
 (the contraction over decomposition limbs, and the tail that switches the
@@ -7,7 +7,10 @@ them, with the per-level device constants they read
 (:class:`KeySwitchPlan`).  Each body takes (..., size, k, n) data on one
 device; the limb range [lo, hi) it is given lets a rank of a mesh run it on
 its own limbs.  ``evaluator.py`` runs them on whole ciphertexts, the mesh
-bodies (``parallel/sharded.py``) on every rank's shard.
+bodies (``parallel/sharded.py``) on every rank's shard.  The key switch
+serves CKKS on NTT-form data and BFV on coefficient-form data; the plan
+carries the scheme's branch (``seal_tpu/evaluator.py:553-557, 664-698``),
+and the BFV multiply's BEHZ body is ``bfv_bodies.py``.
 
 On the card the NTT sites and the contraction launch the hand-written
 kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois
@@ -21,6 +24,7 @@ import torch
 
 from .context import ContextData, SealContext
 from .ntt_tables import LimbTables
+from .params import SchemeType
 from .ops import ntt as NTT
 from .ops import poly as P
 from .ops import u64 as U
@@ -29,8 +33,10 @@ from .ops.rns import _c, _cshoup, _ratio, slice_limbs, take_limbs
 
 
 class KeySwitchPlan:
-    """Device constants of the CKKS key switch at one level
-    (``seal_tpu/evaluator.py:541-690``), built once per level and device.
+    """Device constants of the key switch at one level
+    (``seal_tpu/evaluator.py:541-698``), built once per level and device.
+    ``ntt_form`` is the scheme's branch: CKKS switches NTT-form polys, BFV
+    coefficient-form ones.
 
     A rank of a mesh that holds limbs [lo, hi) of the level reads the rows
     [lo, hi) of the per-limb constants and the bundles of :meth:`level` and
@@ -48,6 +54,7 @@ class KeySwitchPlan:
         sel_idx = list(range(D)) + [k_key - 1]   # output limb -> key modulus
         sel_vals = [key_moduli[i] for i in sel_idx]
         self.D = D
+        self.ntt_form = cd.parms.scheme == SchemeType.CKKS
         self.key_columns = torch.tensor(sel_idx, device=dev)
         self.sel_tables = take_limbs(key_tables, sel_idx)
         self.need_reduce = torch.tensor([[qj > qi for qi in sel_vals] for qj in qv], device=dev)
@@ -63,7 +70,9 @@ class KeySwitchPlan:
         self.dq_ratio_hi = _ratio(qv, dev)[1]
         self.qk_above = torch.tensor([[qk > qi] for qi in qv], device=dev)
         self.fix = _c([qi - (qk_half % qi) for qi in qv], dev)
-        self.four_q = _c([qi << 2 for qi in qv], dev)
+        # the tail's lazy offset: the key-switched sum lies below 4q_i after
+        # the CKKS forward NTT, below 2q_i after the BFV inverse NTT
+        self.lazy_q = _c([qi << (2 if self.ntt_form else 1) for qi in qv], dev)
         self.ms_op, self.ms_qt = _cshoup(key_cd.rns_tool.inv_q_last_mod_q[:D], qv, dev)
         self.level_tab = cd.limb_tables(dev)
         self._cut = {}
@@ -109,23 +118,31 @@ def convolve(d1: torch.Tensor, d2: torch.Tensor, t) -> torch.Tensor:
 def key_switch_contract(plan: KeySwitchPlan, target: torch.Tensor, key_c0: torch.Tensor,
                         key_c1: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """The key-switch sum over decomposition limbs [lo, hi): ``target``
-    (..., hi - lo, n) holds those limbs in NTT form, ``key_c0``/``key_c1``
-    their key rows (hi - lo, k_key, n).  Returns (..., 2, Rn, n) < q_i."""
+    (..., hi - lo, n) holds those limbs in the scheme's form (NTT for CKKS,
+    coefficients for BFV), ``key_c0``/``key_c1`` their key rows
+    (hi - lo, k_key, n).  Returns (..., 2, Rn, n) < q_i.  A CKKS target is
+    inverse-transformed first and its NTT form gives the diagonal; a BFV
+    target goes in as it is, with no diagonal."""
     target = target.contiguous()
-    t_target = NTT.inverse(target, plan.level(lo, hi))                   # (..., D, n) < q
+    if plan.ntt_form:
+        t_target, t_diag = NTT.inverse(target, plan.level(lo, hi)), target              # (..., D, n) < q
+    else:
+        t_target, t_diag = target, None
 
     # Select key columns (D', k_key, n) -> (D', Rn, n) and stack both
     # components: (2, D', Rn, n); the contraction uses rows [0, hi - lo).
     kc = torch.stack([key_c0.index_select(1, plan.key_columns),
                       key_c1.index_select(1, plan.key_columns)])
-    return switch_key_contract(t_target, target, kc, plan.sel_tables,
+    return switch_key_contract(t_target, t_diag, kc, plan.sel_tables,
                                plan.need_reduce[lo:hi], row_offset=lo)
 
 
 def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tensor,
                     lo: int, hi: int) -> torch.Tensor:
     """Switch the special prime away and add into the ciphertext
-    (evaluator.cpp:2806-2865), on limbs [lo, hi): ``prod`` is the whole
+    (evaluator.cpp:2806-2865), on limbs [lo, hi), in the scheme's form:
+    CKKS brings the rounding term into the NTT domain, BFV takes the sum
+    out of it.  ``prod`` is the whole
     sum (..., 2, Rn, n), ``ct_data`` (..., size, hi - lo, n) those limbs
     of the ciphertext.  With size 1 the ciphertext's c1 is zero, as after
     a Galois permutation whose c1 was switched away: the output's c1 is
@@ -138,8 +155,11 @@ def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tens
     t_last_c = U.barrett_reduce_64(t_last_c + plan.qk_half, plan.qk, plan.qk_ratio_hi)
     red = U.barrett_reduce_64(t_last_c, dq, plan.dq_ratio_hi[lo:hi])
     t_ntt = torch.where(plan.qk_above[lo:hi], red, t_last_c) + plan.fix[lo:hi]  # < 2q_i
-    t_ntt = NTT.forward(t_ntt, plan.dec(lo, hi), lazy=True)             # < 4q_i
-    new = U.mul_mod_shoup(rest + plan.four_q[lo:hi] - t_ntt, plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
+    if plan.ntt_form:
+        t_ntt = NTT.forward(t_ntt, plan.dec(lo, hi), lazy=True)         # < 4q_i
+    else:
+        rest = NTT.inverse(rest.contiguous(), plan.dec(lo, hi), lazy=True)   # < 2q_i
+    new = U.mul_mod_shoup(rest + plan.lazy_q[lo:hi] - t_ntt, plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
 
     if ct_data.shape[-3] == 1:
         return torch.cat([U.add_mod(new[..., :1, :, :], ct_data, dq), new[..., 1:, :, :]], dim=-3)
@@ -148,16 +168,20 @@ def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tens
     return out
 
 
-def galois(plan: KeySwitchPlan, data: torch.Tensor, table: torch.Tensor, key_c0: torch.Tensor,
+def galois(plan: KeySwitchPlan, data: torch.Tensor, tables, key_c0: torch.Tensor,
            key_c1: torch.Tensor) -> torch.Tensor:
-    """The Galois automorphism of NTT-form (..., 2, k, n) data and the key
-    switch of its permuted c1 (evaluator.cpp:2384-2470): both polys are
-    permuted by one gather with ``table`` (the element's NTT-domain index
-    tensor on the data's device), the key switch contracts the permuted c1
-    with the key's first D rows, and the tail adds the result into
-    (permuted c0, 0).  With a leading batch axis kernel B takes the batch
-    on its grid, one launch for all of it."""
+    """The Galois automorphism of (..., 2, k, n) data and the key switch of
+    its permuted c1 (evaluator.cpp:2384-2470): both polys are permuted by
+    one gather with the element's index tensor on the data's device, the
+    NTT-domain ``(table,)`` for CKKS or the coefficient ``(source, negate)``
+    pair for BFV (``GaloisTool.ntt_index`` / ``coeff_index``), the key
+    switch contracts the permuted c1 with the key's first D rows, and the
+    tail adds the result into (permuted c0, 0).  With a leading batch axis
+    kernel B takes the batch on its grid, one launch for all of it."""
     D = plan.D
-    perm = P.apply_galois_ntt(data, table)
+    if plan.ntt_form:
+        perm = P.apply_galois_ntt(data, *tables)
+    else:
+        perm = P.apply_galois_coeff(data, *tables, plan.level(0, D).q)
     prod = key_switch_contract(plan, perm[..., 1, :, :], key_c0[:D], key_c1[:D], 0, D)
     return key_switch_tail(plan, prod, perm[..., :1, :, :], 0, D)

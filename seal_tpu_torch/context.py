@@ -102,9 +102,10 @@ def resolve_device(device) -> torch.device:
 class GaloisTool:
     """Automorphism helper with cached permutation tables (``util/galois.cpp``).
 
-    The tables are kept once per Galois element as host arrays, and the
-    NTT-domain one once per (element, device) as the index tensor the
-    gather takes, so a rotation copies no table to the card.
+    The tables are kept once per Galois element as host arrays, and once
+    per (element, device) as the tensors the gather takes (the NTT-domain
+    index, or the coefficient-domain index and negate flags), so a rotation
+    copies no table to the card.
     """
 
     GENERATOR = 3
@@ -115,6 +116,7 @@ class GaloisTool:
         self._ntt_tables: Dict[int, np.ndarray] = {}
         self._coeff_tables: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._ntt_index: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+        self._coeff_index: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def get_elt_from_step(self, step: int) -> int:
         return get_elt_from_step(step, self.n)
@@ -146,6 +148,16 @@ class GaloisTool:
             self._ntt_index[key] = torch.from_numpy(self.ntt_table(galois_elt).astype(np.int64)).to(key[1])
         return self._ntt_index[key]
 
+    def coeff_index(self, galois_elt: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The coefficient-domain table on ``device``: (source index int64,
+        negate flag bool)."""
+        key = (galois_elt, torch.device(device))
+        if key not in self._coeff_index:
+            src, neg = self.coeff_table(galois_elt)
+            self._coeff_index[key] = (torch.from_numpy(src.astype(np.int64)).to(key[1]),
+                                      torch.from_numpy(neg).to(key[1]))
+        return self._coeff_index[key]
+
 
 class ContextData:
     """Per-level immutable precompute bundle (cf. ``SEALContext::ContextData``)."""
@@ -161,13 +173,18 @@ class ContextData:
         self.total_coeff_modulus: int = 1
         self.base_q: Optional[HostRNSBase] = None
         self.ntt_tables: List[HostNTTTables] = []
+        self.plain_ntt_tables: Optional[HostNTTTables] = None
         self.rns_tool: Optional[HostRNSTool] = None
         self.galois_tool: Optional[GaloisTool] = None
+        # BFV and BGV: Delta = floor(q/t) and q mod t, in RNS and whole
+        self.coeff_div_plain_modulus: List[int] = []
+        self.upper_half_increment: List[int] = []
+        self.coeff_modulus_mod_plain_modulus: int = 0
         # the lift of a coefficient plaintext into base q (context.cpp:332-404)
         self.plain_upper_half_threshold: int = 0
         self.plain_upper_half_increment: List[int] = []
         self.upper_half_threshold: int = 0
-        self._limb_tables: Dict[torch.device, LimbTables] = {}
+        self._limb_tables: Dict[Tuple[str, torch.device], LimbTables] = {}
 
     @property
     def parms_id(self) -> ParmsId:
@@ -185,15 +202,31 @@ class ContextData:
     def log_n(self) -> int:
         return self.parms.poly_modulus_degree.bit_length() - 1
 
+    def _cached_tables(self, name: str, device, build) -> LimbTables:
+        device = self.device if device is None else torch.device(device)
+        tables = self._limb_tables.get((name, device))
+        if tables is None:
+            tables = self._limb_tables[(name, device)] = build(device)
+        return tables
+
     def limb_tables(self, device=None) -> LimbTables:
         """NTT + modulus constants for base q at this level, on the context's
         device or, for a rank of a mesh, on ``device``; built once per device."""
-        device = self.device if device is None else torch.device(device)
-        tables = self._limb_tables.get(device)
-        if tables is None:
-            tables = build_limb_tables(self.log_n, self.parms.coeff_modulus, self.ntt_tables, device=device)
-            self._limb_tables[device] = tables
-        return tables
+        return self._cached_tables("q", device, lambda dev: build_limb_tables(
+            self.log_n, self.parms.coeff_modulus, self.ntt_tables, device=dev))
+
+    def behz_limb_tables(self, device=None) -> LimbTables:
+        """The BFV multiply's tables over q U Bsk (q's limbs first), with the
+        plain modulus t folded into the inverse transform's 1/n constants:
+        the BEHZ multiply scales every inverse NTT output by t
+        (evaluator.cpp:549), so the scaling costs nothing.  The forward
+        tables are the plain ones (``inv_scale`` touches only the inverse),
+        so one bundle serves the forward transform of both bases and the
+        t-scaled inverse of both, one launch each.  Built once per device,
+        under its own key beside the unscaled tables of q."""
+        moduli = list(self.parms.coeff_modulus) + list(self.rns_tool.base_Bsk.moduli)
+        return self._cached_tables("behz", device, lambda dev: build_limb_tables(
+            self.log_n, moduli, inv_scale=[self.parms.plain_modulus.value] * len(moduli), device=dev))
 
 
 class SealContext:
@@ -332,10 +365,6 @@ class SealContext:
             return cd
 
         if parms.scheme in (SchemeType.BFV, SchemeType.BGV):
-            # The plain-modulus checks of context.cpp:285-330 hold for both
-            # schemes, and so does the plaintext lift; the schemes' other
-            # constants arrive with the BFV and BGV slices
-            # (ROADMAP.md queue 1, items 9 and 10).
             t = plain_modulus.value
             if t >> PLAIN_MOD_BIT_COUNT_MAX or not (t >> (PLAIN_MOD_BIT_COUNT_MIN - 1)):
                 q.parameter_error = ErrorType.INVALID_PLAIN_MODULUS_BIT_COUNT
@@ -347,8 +376,18 @@ class SealContext:
             if t >= cd.total_coeff_modulus:
                 q.parameter_error = ErrorType.INVALID_PLAIN_MODULUS_TOO_LARGE
                 return cd
+            # batching needs the mod-t NTT: t prime and 1 mod 2N
             q.using_batching = True
+            try:
+                cd.plain_ntt_tables = cached_host_ntt_tables(log_n, plain_modulus)
+            except (ValueError, RuntimeError):
+                q.using_batching = False
             q.using_fast_plain_lift = all(m.value > t for m in coeff_modulus)
+            # Delta = floor(q/t) and q mod t (context.cpp:332-376)
+            delta, rem = divmod(cd.total_coeff_modulus, t)
+            cd.coeff_div_plain_modulus = cd.base_q.decompose(delta)
+            cd.upper_half_increment = cd.base_q.decompose(rem)
+            cd.coeff_modulus_mod_plain_modulus = rem
             cd.plain_upper_half_threshold = (t + 1) >> 1
             if q.using_fast_plain_lift:
                 cd.plain_upper_half_increment = [m.value - t for m in coeff_modulus]
@@ -372,7 +411,7 @@ class SealContext:
 
         try:
             cd.rns_tool = HostRNSTool(n, cd.base_q, plain_modulus if parms.scheme != SchemeType.CKKS else Modulus(0))
-        except ValueError:
+        except (ValueError, RuntimeError):
             q.parameter_error = ErrorType.FAILED_CREATING_RNS_TOOL
             return cd
 

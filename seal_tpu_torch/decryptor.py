@@ -1,22 +1,31 @@
-"""Decryptor: the dot product of a ciphertext with powers of the secret key.
+"""Decryptor: the dot product of a ciphertext with powers of the secret key,
+then the scheme's decoding tail.
 
-Port of the CKKS part of ``seal_tpu/decryptor.py`` (counterpart of
-``decryptor.{h,cpp}``): c0 + c1 s + c2 s^2 + ... in the NTT domain
-(``decryptor.cpp:320-407``), returned as an NTT-form plaintext.  BFV's and
-BGV's decoding tails and the noise budget raise ``NotImplementedError``
-naming their ROADMAP.md items.
+Port of ``seal_tpu/decryptor.py`` (counterpart of ``decryptor.{h,cpp}``):
+c0 + c1 s + c2 s^2 + ... (``decryptor.cpp:320-407``), in the NTT domain for
+CKKS (returned as an NTT-form plaintext) and through it for BFV's
+coefficient-form ciphertexts, whose phase goes through the {t, gamma}
+scale-and-round (``ops/rns.decrypt_scale_and_round``) to a coefficient
+plaintext.  ``invariant_noise_budget`` (``decryptor.cpp:409-486``) is BFV's;
+BGV's decoding tail and its half of the noise budget raise
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from .context import SealContext
+from .convert import u64_to_numpy
 from .data import Ciphertext, Plaintext, SecretKey
 from .params import SchemeType, not_ported
+from .ops import ntt as NTT
+from .ops import rns as R
 from .ops import u64 as U
+from .ops.rns import _cshoup
 
 
 class Decryptor:
@@ -34,29 +43,63 @@ class Decryptor:
             self._sk_powers.append(U.mul_mod(self._sk_powers[-1], self._sk_powers[0], t.q, t.ratio_lo, t.ratio_hi))
         return self._sk_powers[power - 1]
 
-    def decrypt(self, ct: Ciphertext) -> Plaintext:
-        if ct.size < 2:
-            raise ValueError("encrypted is empty")
-        scheme = self.context.first_context_data().parms.scheme
-        if scheme != SchemeType.CKKS:
-            raise not_ported(scheme)
-        if not ct.is_ntt_form:
-            raise ValueError("encrypted must be in NTT form")
+    def _phase(self, ct: Ciphertext) -> torch.Tensor:
+        """c0 + c1 s + ... in the ciphertext's domain (NTT or coefficient)."""
         cd = self.context.get_context_data(ct.parms_id)
         if cd is None:
             raise ValueError("encrypted is not valid for encryption parameters")
         t = cd.limb_tables()
         k = ct.coeff_modulus_size
-        phase = ct.data[0]
+        rest = ct.data[1:] if ct.is_ntt_form else NTT.forward(ct.data[1:].contiguous(), t, lazy=True)
+        acc = None
         for j in range(1, ct.size):
-            prod = U.mul_mod(ct.data[j], self._secret_key_power(j)[:k], t.q, t.ratio_lo, t.ratio_hi)
-            phase = U.add_mod(phase, prod, t.q)
+            prod = U.mul_mod(rest[j - 1], self._secret_key_power(j)[:k], t.q, t.ratio_lo, t.ratio_hi)
+            acc = prod if acc is None else U.add_mod(acc, prod, t.q)
+        if not ct.is_ntt_form:
+            acc = NTT.inverse(acc, t)
+        return U.add_mod(ct.data[0], acc, t.q)
+
+    def decrypt(self, ct: Ciphertext) -> Plaintext:
+        if ct.size < 2:
+            raise ValueError("encrypted is empty")
+        scheme = self.context.first_context_data().parms.scheme
+        if scheme == SchemeType.BFV:
+            return self._bfv_decrypt(ct)
+        if scheme != SchemeType.CKKS:
+            raise not_ported(scheme)
+        if not ct.is_ntt_form:
+            raise ValueError("encrypted must be in NTT form")
         p = Plaintext()
         p.parms_id = ct.parms_id
         p.scale = ct.scale
-        p.rns_data = phase
+        p.rns_data = self._phase(ct)
         return p
 
+    def _bfv_decrypt(self, ct: Ciphertext) -> Plaintext:
+        if ct.is_ntt_form:
+            raise ValueError("encrypted cannot be in NTT form")
+        phase = self._phase(ct)
+        cd = self.context.get_context_data(ct.parms_id)
+        coeffs = u64_to_numpy(R.decrypt_scale_and_round(phase, cd.rns_tool))[0]
+        nonzero = np.nonzero(coeffs)[0]
+        return Plaintext.from_coeffs(coeffs[: int(nonzero[-1]) + 1 if len(nonzero) else 1])
+
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
-        raise NotImplementedError("the noise budget is a BFV and BGV measure; BFV and BGV are not ported yet "
-                                  "(ROADMAP.md queue 1, items 9 and 10)")
+        """Remaining noise budget in bits (decryptor.cpp:409-486): the
+        centered infinity norm of t times the phase, composed on the host."""
+        scheme = self.context.key_context_data().parms.scheme
+        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+            raise ValueError("unsupported scheme")
+        if scheme == SchemeType.BGV:
+            raise not_ported(scheme)
+        if ct.is_ntt_form:
+            raise ValueError("BFV encrypted cannot be in NTT form")
+        noise = self._phase(ct)
+        cd = self.context.get_context_data(ct.parms_id)
+        qv = cd.coeff_modulus_values
+        tv = cd.parms.plain_modulus.value
+        noise = U.mul_mod_shoup(noise, *_cshoup([tv % q for q in qv], qv, noise.device), cd.limb_tables().q)
+        q_total = cd.total_coeff_modulus
+        half = q_total >> 1
+        norm = max((q_total - v if v > half else v) for v in cd.base_q.compose_array(u64_to_numpy(noise)))
+        return max(0, cd.total_coeff_modulus_bit_count - norm.bit_length() - 1)

@@ -85,9 +85,9 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> None
     3. for n >= 8 and n % 4 == 0, the batched step and the rotation on the
        (host=2, data, limb=2) mesh with replicated keys.
 
-    The JAX twin also runs a sharded BFV multiply, which waits for BFV
-    (ROADMAP.md queue 1, item 9); its rotation is a BFV one, and the CKKS
-    rotation above stands for it.
+    The JAX twin also runs a sharded BFV multiply, which waits for BFV on
+    a mesh (ROADMAP.md queue 1, item 13); its rotation is a BFV one, and
+    the CKKS rotation above stands for it.
     """
     limb = 2 if n_devices % 2 == 0 else 1
     hem = make_mesh(n_devices, limb_parallel=limb, devices=devices)

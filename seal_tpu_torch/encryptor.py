@@ -1,11 +1,15 @@
-"""Encryptor: public- and secret-key encryption, CKKS, and the plaintext lift.
+"""Encryptor: public- and secret-key encryption for BFV and CKKS, and the
+plaintext paths' helpers.
 
-Port of the CKKS part of ``seal_tpu/encryptor.py`` (counterpart of
-``encryptor.{h,cpp}``): an encryption of zero at the plaintext's level with
-the NTT-form plaintext added into c0.  :func:`bgv_lift_plain` lifts a
-coefficient plaintext into base q in NTT form, for the evaluator's
-plaintext paths.  Encrypting a BFV or BGV plaintext raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Port of ``seal_tpu/encryptor.py`` (counterpart of ``encryptor.{h,cpp}``):
+CKKS adds the NTT-form plaintext into c0 of an NTT-form encryption of zero
+at the plaintext's level; BFV adds round(Delta * m), Delta = floor(q/t),
+into c0 of a coefficient-form encryption of zero at the first level (the
+scaling variant, ``scalingvariant.cpp:69-161``,
+:func:`multiply_add_plain_with_scaling_variant`, whose term BFV's
+add_plain and sub_plain share).  :func:`bgv_lift_plain` lifts a coefficient plaintext
+into base q in NTT form, for the evaluator's plaintext paths.  Encrypting
+a BGV plaintext raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,7 +25,40 @@ from .ntt_tables import u64_tensor
 from .params import ParmsId, SchemeType, not_ported
 from .ops import ntt as NTT
 from .ops import u64 as U
+from .ops.rns import _cshoup
 from .rlwe import encrypt_zero_asymmetric, encrypt_zero_symmetric
+
+
+def _scaling_variant_fix(plain: Plaintext, cd: ContextData) -> np.ndarray:
+    """Per coefficient: floor(((q mod t) m + (t + 1) / 2) / t), exact on the host."""
+    t = cd.parms.plain_modulus.value
+    q_mod_t = cd.coeff_modulus_mod_plain_modulus
+    thr = cd.plain_upper_half_threshold
+    return np.array([(int(m) * q_mod_t + thr) // t for m in plain.coeff_data], dtype=np.uint64)
+
+
+def scaling_variant_term(plain: Plaintext, cd: ContextData, device) -> torch.Tensor:
+    """round(Delta m) = Delta m + fix mod q at ``cd``'s level, (k, n) in
+    coefficient form on ``device``: what BFV adds into c0."""
+    n = cd.parms.poly_modulus_degree
+    count = len(plain.coeff_data)
+    m = np.zeros(n, dtype=np.uint64)
+    m[:count] = plain.coeff_data
+    fix = np.zeros(n, dtype=np.uint64)
+    fix[:count] = _scaling_variant_fix(plain, cd)
+    t = cd.limb_tables(device)
+    scaled = U.mul_mod_shoup(u64_tensor(m[None, :], device), *_cshoup(cd.coeff_div_plain_modulus,
+                                                                        cd.coeff_modulus_values, device), t.q)
+    return U.add_mod(scaled, U.barrett_reduce_64(u64_tensor(fix[None, :], device), t.q, t.ratio_hi), t.q)
+
+
+def multiply_add_plain_with_scaling_variant(plain: Plaintext, cd: ContextData, c0: torch.Tensor,
+                                            negate: bool = False) -> torch.Tensor:
+    """c0 + round(Delta m) mod q, or c0 minus it with ``negate``; ``c0``
+    is (..., k, n) in coefficient form at ``cd``'s level."""
+    term = scaling_variant_term(plain, cd, c0.device)
+    q = cd.limb_tables(c0.device).q
+    return U.sub_mod(c0, term, q) if negate else U.add_mod(c0, term, q)
 
 
 def bgv_lift_plain(plain: Plaintext, cd: ContextData) -> torch.Tensor:
@@ -56,7 +93,7 @@ class Encryptor:
         if public_key is None and secret_key is None:
             raise ValueError("at least one of public/secret key must be given")
         scheme = context.key_context_data().parms.scheme
-        if scheme != SchemeType.CKKS:
+        if scheme == SchemeType.BGV:
             raise not_ported(scheme)
         self.context = context
         self._public_key = public_key
@@ -75,10 +112,11 @@ class Encryptor:
         cd = self.context.get_context_data(parms_id)
         if cd is None:
             raise ValueError("parms_id is not valid for encryption parameters")
+        is_ntt_form = cd.parms.scheme == SchemeType.CKKS
         if not is_asymmetric:
             if self._secret_key is None:
                 raise ValueError("secret key is not set")
-            return encrypt_zero_symmetric(self._secret_key, self.context, parms_id, save_seed)
+            return encrypt_zero_symmetric(self._secret_key, self.context, parms_id, is_ntt_form, save_seed)
         if self._public_key is None:
             raise ValueError("public key is not set")
         if cd.chain_index < self.context.first_context_data().chain_index:
@@ -91,7 +129,7 @@ class Encryptor:
             while ct.parms_id != parms_id:
                 ct = ev.mod_switch_to_next(ct)
             return ct
-        return encrypt_zero_asymmetric(self._public_key, self.context, parms_id)
+        return encrypt_zero_asymmetric(self._public_key, self.context, parms_id, is_ntt_form)
 
     # -- plaintext encryptions --------------------------------------------
     def encrypt(self, plain: Plaintext) -> Ciphertext:
@@ -101,6 +139,14 @@ class Encryptor:
         return self._encrypt_internal(plain, is_asymmetric=False, save_seed=save_seed)
 
     def _encrypt_internal(self, plain: Plaintext, is_asymmetric: bool, save_seed: bool) -> Ciphertext:
+        if self.context.key_context_data().parms.scheme == SchemeType.BFV:
+            if plain.is_ntt_form:
+                raise ValueError("plain cannot be in NTT form")
+            ct = self._encrypt_zero_internal(self.context.first_parms_id, is_asymmetric, save_seed)
+            data = ct.data.clone()
+            data[0] = multiply_add_plain_with_scaling_variant(plain, self.context.first_context_data(), ct.data[0])
+            ct.data = data
+            return ct
         if not plain.is_ntt_form:
             raise ValueError("plain must be in NTT form")
         cd = self.context.get_context_data(plain.parms_id)

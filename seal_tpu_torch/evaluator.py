@@ -1,28 +1,31 @@
-"""Evaluator: the CKKS homomorphic op surface.
+"""Evaluator: the BFV and CKKS homomorphic op surface.
 
-Port of the CKKS part of ``seal_tpu/evaluator.py`` (counterpart of
-``evaluator.{h,cpp}``): negate, add, sub, add_many, multiply, square,
-relinearize, the modulus switches (mod_switch_to_next/to, rescale_to_next/to,
-mod_reduce_to_next/to, mod_switch_plain_to), the plaintext ops (add_plain,
-sub_plain, multiply_plain on all four of its branches), the NTT transforms,
-and the Galois ops (apply_galois, rotate_vector, complex_conjugate).  Ring
-arithmetic runs on the context's device; metadata (levels, scales) is
-tracked on the host.  Ciphertexts are immutable: every op returns a new
-Ciphertext.  There is no jit cache: the ops run eagerly, and the constants
-each level needs are built once and kept in ``self._plans``.
+Port of ``seal_tpu/evaluator.py`` (counterpart of ``evaluator.{h,cpp}``)
+for BFV and CKKS: negate, add, sub, add_many, multiply, square,
+multiply_many and exponentiate (BFV), relinearize, the modulus switches
+(mod_switch_to_next/to: BFV's divide-and-round, CKKS's limb drop;
+rescale_to_next/to, mod_reduce_to_next/to, mod_switch_plain_to), the
+plaintext ops (add_plain, sub_plain: BFV's scaling variant; multiply_plain
+on all four of its branches), the NTT transforms, and the Galois ops
+(apply_galois on either form, rotate_rows/rotate_columns for BFV,
+rotate_vector/complex_conjugate for CKKS).  Ring arithmetic runs on the
+context's device; metadata (levels, scales) is tracked on the host.
+Ciphertexts are immutable: every op returns a new Ciphertext.  There is no
+jit cache: the ops run eagerly, and the constants each level needs are
+built once and kept in ``self._plans``.
 
-The ring bodies (the convolution, the key switch and the Galois body) live
-in ``ckks_bodies.py``, their mesh versions in ``parallel/sharded.py``.  On
-the card every NTT and the key-switch contraction launch the hand-written
-kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois
-permutation is one ``index_select``, and the rest is elementwise mod-q
-arithmetic in plain PyTorch.  Inside ``ops.ntt.plain_on_card()`` the plain
-PyTorch versions run on the card as well, to check the kernels.
+The ring bodies live in ``ckks_bodies.py`` (the convolution, the key
+switch of either form, the Galois body) and ``bfv_bodies.py`` (the BEHZ
+multiply), their mesh versions in ``parallel/sharded.py``.  On the card
+every NTT and the key-switch contraction launch the hand-written kernels
+(``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois permutation
+is one ``index_select``, and the rest is elementwise mod-q arithmetic in
+plain PyTorch.  Inside ``ops.ntt.plain_on_card()`` the plain PyTorch
+versions run on the card as well, to check the kernels.
 
-BFV and BGV need their schemes' arithmetic (the BEHZ multiply, the scaling
-variant, correction factors), which is not ported yet: their branches raise
-``NotImplementedError`` naming their ROADMAP.md items, and so do
-``rotate_rows`` and ``rotate_columns`` on their contexts.
+BGV needs its scheme's arithmetic (correction factors, the mod-t switch),
+which is not ported yet: its branches raise ``NotImplementedError`` naming
+ROADMAP.md item 10.  BFV data sharded over a mesh raises it naming item 13.
 """
 
 from __future__ import annotations
@@ -34,11 +37,11 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from . import numth
+from . import bfv_bodies, numth
 from .ckks_bodies import KeySwitchPlan, convolve, galois, key_switch_contract, key_switch_tail
 from .context import ContextData, SealContext
 from .data import Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, RelinKeys
-from .encryptor import bgv_lift_plain
+from .encryptor import bgv_lift_plain, scaling_variant_term
 from .params import ParmsId, SchemeType, not_ported
 from .parallel import sharded
 from .parallel.mesh import ShardedTensor, shard, shard_kswitch_key
@@ -132,7 +135,10 @@ class Evaluator:
             raise ValueError("ciphertext is not valid for encryption parameters (contains a seed)")
         if ct.size < 2:
             raise ValueError("ciphertext is empty or invalid")
-        if not isinstance(ct.data, ShardedTensor) and ct.data.device != self.context.device:
+        if isinstance(ct.data, ShardedTensor):
+            if cd.parms.scheme == SchemeType.BFV:
+                raise sharded.bfv_not_ported()
+        elif ct.data.device != self.context.device:
             raise ValueError(f"ciphertext lies on {ct.data.device}, the context on {self.context.device}")
         return cd
 
@@ -211,9 +217,12 @@ class Evaluator:
         if ct1.parms_id != ct2.parms_id:
             raise ValueError("encrypted1 and encrypted2 parameter mismatch")
         scheme = self.context.first_context_data().parms.scheme
-        if scheme != SchemeType.CKKS:
+        if scheme == SchemeType.BFV:
+            out = self._bfv_multiply(ct1, ct2)
+        elif scheme == SchemeType.CKKS:
+            out = self._ckks_multiply(ct1, ct2)
+        else:
             raise not_ported(scheme)
-        out = self._ckks_multiply(ct1, ct2)
         self._check_transparent(out)
         return out
 
@@ -222,17 +231,23 @@ class Evaluator:
 
     def multiply_many(self, cts: Sequence[Ciphertext], relin_keys: RelinKeys) -> Ciphertext:
         """Binary-tree product, BFV and BGV only (evaluator.cpp:1649-1724)."""
-        if not cts:
-            raise ValueError("encrypteds cannot be empty")
-        scheme = self._scheme()
-        if scheme not in (SchemeType.BFV, SchemeType.BGV):
-            raise ValueError("unsupported scheme")
-        raise not_ported(scheme)
+        return multiply_tree(self, cts, relin_keys)
 
     def exponentiate(self, ct: Ciphertext, exponent: int, relin_keys: RelinKeys) -> Ciphertext:
         if exponent == 0:
             raise ValueError("exponent cannot be 0")
         return self.multiply_many([ct] * exponent, relin_keys)
+
+    def _bfv_multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        """The BEHZ multiply (evaluator.cpp:395-567, ``bfv_bodies.multiply``);
+        ``multiply(ct, ct)`` squares."""
+        if ct1.is_ntt_form or ct2.is_ntt_form:
+            raise ValueError("encrypted1 or encrypted2 cannot be in NTT form")
+        cd = self._cd(ct1)
+        self._cd(ct2)
+        out = ct1.copy()
+        out.data = bfv_bodies.multiply(ct1.data, ct2.data, cd)
+        return out
 
     def _ckks_multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
         if not (ct1.is_ntt_form and ct2.is_ntt_form):
@@ -266,6 +281,8 @@ class Evaluator:
         into polys 0 and 1."""
         cd = self._cd(ct)
         scheme = cd.parms.scheme
+        if scheme == SchemeType.BFV and ct.is_ntt_form:
+            raise ValueError("BFV encrypted cannot be in NTT form")
         if scheme in (SchemeType.CKKS, SchemeType.BGV) and not ct.is_ntt_form:
             raise ValueError(f"{scheme.name} encrypted must be in NTT form")
         if not self.context.using_keyswitching:
@@ -282,7 +299,7 @@ class Evaluator:
 
     def _switch_key_body(self, cd: ContextData, ct_size: int, ct_data: torch.Tensor,
                          target: torch.Tensor, key_c0: torch.Tensor, key_c1: torch.Tensor) -> torch.Tensor:
-        if cd.parms.scheme != SchemeType.CKKS:
+        if cd.parms.scheme == SchemeType.BGV:
             raise not_ported(cd.parms.scheme)
         plan = self._plan(cd)
         D = plan.D
@@ -314,13 +331,19 @@ class Evaluator:
     def _mod_switch_scale_to_next(self, ct: Ciphertext) -> Ciphertext:
         cd = self._cd(ct)
         scheme = cd.parms.scheme
-        if scheme != SchemeType.CKKS:
+        if scheme == SchemeType.BGV:
             raise not_ported(scheme)
-        if not ct.is_ntt_form:
+        if scheme == SchemeType.BFV and ct.is_ntt_form:
+            raise ValueError("BFV encrypted cannot be in NTT form")
+        if scheme == SchemeType.CKKS and not ct.is_ntt_form:
             raise ValueError("CKKS encrypted must be in NTT form")
         next_cd = cd.next_context_data
         if next_cd is None:
             raise ValueError("end of modulus switching chain reached")
+        if scheme == SchemeType.BFV:
+            # divide and round by q_last on the coefficients; the scale stays
+            return Ciphertext(R.divide_and_round_q_last(ct.data, cd.rns_tool), next_cd.parms_id, False,
+                              ct.scale, ct.correction_factor)
         # both the current and the destination scale must stay normal and
         # in bounds (evaluator.cpp:1232-1238)
         if not _is_scale_within_bounds(ct.scale, cd) or not _is_scale_within_bounds(
@@ -374,10 +397,10 @@ class Evaluator:
 
     def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
         self._cd(ct)
-        scheme = self._scheme()
-        if scheme != SchemeType.CKKS:
-            raise not_ported(scheme)        # the scale variant of BFV and BGV
-        out = self._mod_switch_drop_to_next(ct)
+        if self._scheme() == SchemeType.CKKS:
+            out = self._mod_switch_drop_to_next(ct)
+        else:
+            out = self._mod_switch_scale_to_next(ct)
         self._check_transparent(out)
         return out
 
@@ -430,25 +453,17 @@ class Evaluator:
 
     def _add_sub_plain(self, ct: Ciphertext, plain: Plaintext, is_add: bool) -> Ciphertext:
         cd = self._cd(ct)
-        scheme = cd.parms.scheme
-        if scheme != SchemeType.CKKS:
-            raise not_ported(scheme)
-        if not ct.is_ntt_form or not plain.is_ntt_form:
-            raise ValueError("CKKS operands must be in NTT form")
-        if ct.parms_id != plain.parms_id:
-            raise ValueError("encrypted and plain parameter mismatch")
-        if not are_same_scale(ct.scale, plain.scale):
-            raise ValueError("scale mismatch")
+        term = plain_term(ct, plain, cd)
         out = ct.copy()
         out.data = self._limbwise(cd, ct.data, lambda x, t, lo, hi: add_sub_plain(
-            x, plain.rns_data[lo:hi].to(x.device), t.q, is_add))
+            x, term[lo:hi].to(x.device), t.q, is_add))
         self._check_transparent(out)
         return out
 
     def multiply_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
         self._cd(ct)
         scheme = self._scheme()
-        if scheme != SchemeType.CKKS:
+        if scheme == SchemeType.BGV:
             raise not_ported(scheme)
         if ct.is_ntt_form and plain.is_ntt_form:
             out = self._multiply_plain_ntt(ct, plain)
@@ -543,14 +558,14 @@ class Evaluator:
         key = galois_keys.key(galois_elt)
         if key is None or key["c0"].shape[0] < len(cd.parms.coeff_modulus):
             raise ValueError("key-switching keys are invalid for encryption parameters")
-        if scheme != SchemeType.CKKS:
+        if scheme == SchemeType.BGV:
             raise not_ported(scheme)
         out = ct.copy()
         if isinstance(ct.data, ShardedTensor):
             out.data = sharded.galois(self._plan, cd, ct.data, galois_elt, key)
         else:
-            table = cd.galois_tool.ntt_index(galois_elt, ct.data.device)
-            out.data = galois(self._plan(cd), ct.data, table, key["c0"], key["c1"])
+            out.data = galois(self._plan(cd), ct.data, galois_tables(cd, galois_elt, ct.data.device),
+                              key["c0"], key["c1"])
         self._check_transparent(out)
         return out
 
@@ -561,16 +576,15 @@ class Evaluator:
         return rotate_by_steps(self.apply_galois, cd.galois_tool, ct, steps, galois_keys)
 
     def rotate_rows(self, ct: Ciphertext, steps: int, galois_keys: GaloisKeys) -> Ciphertext:
-        scheme = self._scheme()
-        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+        if self._scheme() not in (SchemeType.BFV, SchemeType.BGV):
             raise ValueError("unsupported scheme")
-        raise not_ported(scheme)
+        return self._rotate_internal(ct, steps, galois_keys)
 
     def rotate_columns(self, ct: Ciphertext, galois_keys: GaloisKeys) -> Ciphertext:
-        scheme = self._scheme()
-        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+        if self._scheme() not in (SchemeType.BFV, SchemeType.BGV):
             raise ValueError("unsupported scheme")
-        raise not_ported(scheme)
+        cd = self._cd(ct)
+        return self.apply_galois(ct, 2 * cd.parms.poly_modulus_degree - 1, galois_keys)
 
     def rotate_vector(self, ct: Ciphertext, steps: int, galois_keys: GaloisKeys) -> Ciphertext:
         if self._scheme() != SchemeType.CKKS:
@@ -582,6 +596,54 @@ class Evaluator:
             raise ValueError("unsupported scheme")
         cd = self._cd(ct)
         return self.apply_galois(ct, 2 * cd.parms.poly_modulus_degree - 1, galois_keys)
+
+
+def multiply_tree(ev, items, relin_keys):
+    """multiply_many's binary-tree product, relinearizing after each
+    multiply (evaluator.cpp:1649-1724); ``ev`` is an Evaluator or a
+    BatchEvaluator, ``items`` its ciphertexts or batches."""
+    if not items:
+        raise ValueError("encrypteds cannot be empty")
+    scheme = ev.context.first_context_data().parms.scheme
+    if scheme not in (SchemeType.BFV, SchemeType.BGV):
+        raise ValueError("unsupported scheme")
+    if scheme == SchemeType.BGV:
+        raise not_ported(scheme)
+    queue = list(items)
+    while len(queue) > 1:
+        pairs = [ev.relinearize(ev.multiply(queue[i], queue[i + 1]), relin_keys) for i in range(0, len(queue) - 1, 2)]
+        queue = pairs + queue[len(queue) - len(queue) % 2:]
+    return queue[0]
+
+
+def plain_term(ct, plain: Plaintext, cd: ContextData) -> torch.Tensor:
+    """The (k, n) term add_plain and sub_plain put into c0 of ``ct`` (a
+    ciphertext or a batch), after the reference's checks: round(Delta m) in
+    coefficient form for BFV, the NTT-form plaintext for CKKS."""
+    scheme = cd.parms.scheme
+    if scheme == SchemeType.BFV:
+        if ct.is_ntt_form or plain.is_ntt_form:
+            raise ValueError("BFV operands cannot be in NTT form")
+        return scaling_variant_term(plain, cd, cd.device)
+    if scheme != SchemeType.CKKS:
+        raise not_ported(scheme)
+    if not ct.is_ntt_form or not plain.is_ntt_form:
+        raise ValueError("CKKS operands must be in NTT form")
+    if ct.parms_id != plain.parms_id:
+        raise ValueError("encrypted and plain parameter mismatch")
+    if not are_same_scale(ct.scale, plain.scale):
+        raise ValueError("scale mismatch")
+    return plain.rns_data
+
+
+def galois_tables(cd: ContextData, galois_elt: int, device):
+    """The permutation tensors of ``ckks_bodies.galois`` for the level's
+    scheme: the NTT-domain index for CKKS, the coefficient-domain (index,
+    negate) pair for BFV."""
+    tool = cd.galois_tool
+    if cd.parms.scheme == SchemeType.CKKS:
+        return (tool.ntt_index(galois_elt, device),)
+    return tool.coeff_index(galois_elt, device)
 
 
 def rotate_by_steps(apply_galois, tool, x, steps: int, galois_keys: GaloisKeys):

@@ -40,6 +40,20 @@ package's ``Evaluator`` on the CPU (``SEAL_TPU_NTT`` at its default,
 across with ``seal_tpu.ops.u64.from_np_u64``; ``tests/test_torch_linear.py``
 recomputes it from the port's plain path and, in a test marked ``slow``,
 from the JAX package, and ``chip_smoke.py`` from the kernels on the card.
+
+``BFV_DIGEST`` and ``BFV_MEDIUM_DIGEST`` are the SHA-256 of the BFV server
+request, ``seal_tpu.pipeline.build_bfv_mult_relin`` (the BEHZ multiply then
+relinearization, output (2, k, n)), on :func:`bfv_context` at N=8192 and
+N=32768 (``CoeffModulus.bfv_default(n)`` at ``SecurityLevel.TC128``, the
+plain modulus ``PlainModulus.batching(n, 20)``, chain expanded: k=4 data
+limbs and a 5-prime Bsk at N=8192, k=15 and 16 at N=32768), with
+``request_inputs(ctx, GOLDEN_REQUEST_SEED)`` read as coefficient-form
+ciphertexts and ``key_inputs(ctx, GOLDEN_KEY_SEED)``.  Each was computed
+once by ``jax.jit`` of that pipeline on the CPU (``JAX_PLATFORMS=cpu``,
+every setting at its default), the inputs carried across with
+``seal_tpu.ops.u64.from_np_u64``.  ``tests/test_torch_bfv.py`` recomputes
+``BFV_DIGEST`` from the port's plain path and both from the JAX package
+(marked ``slow``), ``chip_smoke.py`` both from the kernels on the card.
 """
 
 from __future__ import annotations
@@ -50,7 +64,7 @@ from typing import Tuple
 import numpy as np
 
 from .context import SealContext
-from .modulus import CoeffModulus, SecurityLevel
+from .modulus import CoeffModulus, PlainModulus, SecurityLevel
 from .params import EncryptionParameters, SchemeType
 
 GOLDEN_N = 8192
@@ -69,6 +83,13 @@ LINEAR_PLAIN_SEED = 2
 LINEAR_GALOIS_SEED = 3
 LINEAR_GALOIS_ELT = 3            # get_elt_from_step(1)
 LINEAR_DIGEST = "1363d56db28f6ce40db9c3b33598a9c9d2b0f5a364d4dcc380f3ce3b72ac56fc"
+BFV_N = 8192
+BFV_MEDIUM_N = 32768
+BFV_PLAIN_BITS = 20
+BFV_CHAIN = ("CoeffModulus.bfv_default(n), SecurityLevel.TC128, plain modulus PlainModulus.batching(n, 20), "
+             "chain expanded")
+BFV_DIGEST = "4062ed8c6578304ce3911ff1ddfd1ced83bc00394dbd2ba74f3bd0722d1987b2"
+BFV_MEDIUM_DIGEST = "ca5db221d01a3267e9311d613f70e5bece2f8341f04b59a25b86ad131bb4c0f1"
 
 _GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _M1 = np.uint64(0xBF58476D1CE4E5B9)
@@ -100,8 +121,20 @@ def medium_context(device=None) -> SealContext:
     return SealContext(parms, True, SecurityLevel.TC128, device=device)
 
 
+def bfv_context(n: int, device=None) -> SealContext:
+    """The BFV context of ``BFV_DIGEST`` (n=8192) and ``BFV_MEDIUM_DIGEST``
+    (n=32768): ``BFV_CHAIN``, the repository's BFV workload
+    (``benchmarks/run_all.py:58-66``)."""
+    parms = EncryptionParameters(SchemeType.BFV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_plain_modulus(PlainModulus.batching(n, BFV_PLAIN_BITS))
+    return SealContext(parms, True, SecurityLevel.TC128, device=device)
+
+
 def request_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Two size-2 NTT-form ciphertexts' data at the first level: (2, k, n) each."""
+    """Two size-2 ciphertexts' data at the first level: (2, k, n) each;
+    uniform residues, read as NTT form (CKKS) or coefficients (BFV)."""
     cd = context.first_context_data()
     n = cd.parms.poly_modulus_degree
     both = _residues(seed, cd.coeff_modulus_values, (2, 2), n)

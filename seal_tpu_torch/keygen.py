@@ -53,7 +53,7 @@ class KeyGenerator:
 
     def create_public_key(self, save_seed: bool = False) -> PublicKey:
         key_id = self.context.key_parms_id
-        return PublicKey(encrypt_zero_symmetric(self._secret_key, self.context, key_id, save_seed))
+        return PublicKey(encrypt_zero_symmetric(self._secret_key, self.context, key_id, True, save_seed))
 
     def _generate_one_kswitch_key(self, target: torch.Tensor, save_seed: bool = False) -> dict:
         """D encryptions of zero with (q_last mod q_i) * target[i] added into
@@ -63,7 +63,7 @@ class KeyGenerator:
         key_cd = self.context.key_context_data()
         key_moduli = key_cd.coeff_modulus_values
         D = len(self.context.first_context_data().parms.coeff_modulus)
-        cts = [encrypt_zero_symmetric(self._secret_key, self.context, key_cd.parms_id, save_seed)
+        cts = [encrypt_zero_symmetric(self._secret_key, self.context, key_cd.parms_id, True, save_seed)
                for _ in range(D)]
         c0 = torch.stack([ct.data[0] for ct in cts])
         c1 = torch.stack([ct.data[1] for ct in cts])

@@ -26,6 +26,10 @@ MOD_BIT_COUNT_MAX = 61          # Modulus representation limit (util/defines.h:3
 MOD_BIT_COUNT_MIN = 2
 USER_MOD_BIT_COUNT_MAX = 60     # user coeff moduli (util/defines.h:40)
 USER_MOD_BIT_COUNT_MIN = 2
+# The BEHZ bases' internal primes (Bsk, m_sk, gamma): 60 bits, as the JAX
+# package chose (``seal_tpu/modulus.py:39``; the reference's 61 would give
+# other primes, and every Bsk residue would differ).
+INTERNAL_MOD_BIT_COUNT = 60
 PLAIN_MOD_BIT_COUNT_MAX = 60
 PLAIN_MOD_BIT_COUNT_MIN = 2
 COEFF_MOD_COUNT_MAX = 256
@@ -134,3 +138,17 @@ class CoeffModulus:
             count_table[size] = count_table.get(size, 0) + 1
         prime_table = {size: numth.get_primes(factor, size, count) for size, count in count_table.items()}
         return [Modulus(prime_table[size].pop(0)) for size in bit_sizes]
+
+
+class PlainModulus:
+    """Static factories for plaintext moduli (cf. ``PlainModulus`` in modulus.h)."""
+
+    @staticmethod
+    def batching(poly_modulus_degree: int, bit_size: int) -> Modulus:
+        """A prime of ``bit_size`` bits congruent to 1 mod 2N, so the
+        BatchEncoder's mod-t NTT exists."""
+        return CoeffModulus.create(poly_modulus_degree, [bit_size])[0]
+
+    @staticmethod
+    def batching_many(poly_modulus_degree: int, bit_sizes: Sequence[int]) -> List[Modulus]:
+        return CoeffModulus.create(poly_modulus_degree, bit_sizes)

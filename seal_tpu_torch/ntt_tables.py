@@ -82,6 +82,31 @@ def _shoup(operand: int, q: int) -> int:
     return ((operand << 64) // q) & _MASK64
 
 
+_HOST_C_NTT_CACHE: dict = {}
+
+
+def host_c_ntt_tables(log_n: int, modulus: Modulus) -> dict:
+    """numpy uint64 (op, qt) twiddle arrays and the fused inverse constants
+    of the host C NTT (``csrc/ntt_mod.c``), cached per (log_n, q)."""
+    key = (log_n, modulus.value)
+    t = _HOST_C_NTT_CACHE.get(key)
+    if t is None:
+        tab = cached_host_ntt_tables(log_n, modulus)
+        q = modulus.value
+
+        def pair(vals):
+            return np.array(vals, dtype=np.uint64), np.array([_shoup(w, q) for w in vals], dtype=np.uint64)
+
+        fwd_op, fwd_qt = pair(tab.root_powers)
+        inv_op, inv_qt = pair(tab.inv_root_powers)
+        t = _HOST_C_NTT_CACHE[key] = {
+            "q": q, "fwd_op": fwd_op, "fwd_qt": fwd_qt, "inv_op": inv_op, "inv_qt": inv_qt,
+            "invn_op": tab.inv_degree, "invn_qt": _shoup(tab.inv_degree, q),
+            "last_op": tab.scaled_last_inv_root, "last_qt": _shoup(tab.scaled_last_inv_root, q),
+        }
+    return t
+
+
 def u64_tensor(values, device=None) -> torch.Tensor:
     """Python ints or a numpy uint64 array -> int64 tensor with the same bits."""
     a = np.asarray(values, dtype=np.uint64)

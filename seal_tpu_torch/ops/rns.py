@@ -1,10 +1,20 @@
-"""RNS mod-switch operation of the CKKS server path, and table slicing.
+"""Device RNS operations: base conversion, the BEHZ toolchain, the modulus
+switches and table slicing.
 
-Port of the part of ``seal_tpu/ops/rns.py`` the slice needs: the CKKS
-rescale ``divide_and_round_q_last_ntt`` (``rns.cpp:830-902``), the constant
-helpers ``_c`` / ``_cshoup`` / ``_ratio``, and ``slice_limbs`` /
-``take_limbs``.  Base conversion and the BEHZ toolchain arrive with the BFV
-slice.
+Port of ``seal_tpu/ops/rns.py`` (the reference's ``RNSTool`` and
+``BaseConverter`` ops, ``util/rns.cpp:418-1258``): the fast base
+conversion ``fast_convert_array``; the BEHZ steps of the BFV multiply
+(``fastbconv_m_tilde``, ``sm_mrq``, ``fast_floor``, ``fastbconv_sk``); the
+modulus switches ``divide_and_round_q_last`` (BFV, coefficient form) and
+``divide_and_round_q_last_ntt`` (the CKKS rescale); BFV's decryption tail
+``decrypt_scale_and_round``; the constant helpers ``_c`` / ``_cshoup`` /
+``_ratio``; and ``slice_limbs`` / ``take_limbs``.  Each function mirrors
+the JAX package's arithmetic step for step on int64 tensors, so the
+residues are the same bits.  The JAX package's int8 digit-plane
+contraction (``_convert_contraction_mxu``) is a TPU workaround and is not
+ported: the conversion's contraction here is plain and exact
+(:func:`_contract`).  BGV's exact conversion and mod-t switch arrive with
+BGV (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -14,7 +24,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ntt_tables import FourStepSlot, LimbTables, u64_tensor
-from ..rns_host import HostRNSTool, shoup_pair
+from ..rns_host import HostBaseConverter, HostRNSTool, shoup_pair
 from . import ntt as NTT
 from . import u64 as U
 
@@ -51,6 +61,7 @@ class _RescaleConstants:
         self.neg_half = _c([qi - (half % qi) for qi in rest], device)
         self.four_q = _c([qi << 2 for qi in rest], device)
         self.inv_op, self.inv_qt = _cshoup(tool.inv_q_last_mod_q, rest, device)
+        self.half_mod = _c([half % qi for qi in rest], device)
 
 
 def _rescale_constants(tool: HostRNSTool, device) -> _RescaleConstants:
@@ -90,6 +101,202 @@ def divide_and_round_q_last_ntt_limbs(x_rest: torch.Tensor, x_last: torch.Tensor
     temp = NTT.forward(temp + c.neg_half[lo:hi], rest_tab, lazy=True)   # < 4q_i
     # x_i + 4q_i - temp, then Shoup-reduce via multiply
     return U.mul_mod_shoup(x_rest + c.four_q[lo:hi] - temp, c.inv_op[lo:hi], c.inv_qt[lo:hi], rest_q)
+
+
+def divide_and_round_q_last(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """Coefficient-form divide-and-round by the last prime, BFV's modulus
+    switch (``divide_and_round_q_last_inplace``, rns.cpp:789-829).
+
+    ``x``: (..., k, n) over base q; returns (..., k-1, n) in [0, q_i).
+    """
+    k = tool.base_q.size
+    c = _rescale_constants(tool, x.device)
+    last_plus = U.add_mod(x[..., k - 1:, :], c.half, c.q_last)
+    temp = U.sub_mod(U.barrett_reduce_64(last_plus, c.rest_q, c.rest_ratio_hi), c.half_mod, c.rest_q)
+    diff = U.sub_mod(x[..., :k - 1, :], temp, c.rest_q)
+    return U.mul_mod_shoup(diff, c.inv_op, c.inv_qt, c.rest_q)
+
+
+# ---------------------------------------------------------------------------
+# Fast base conversion (rns.cpp:418-465)
+# ---------------------------------------------------------------------------
+
+_M16 = 0xFFFF
+_M32 = 0xFFFFFFFF
+# Input limbs summed exactly before one Barrett reduction: each product of
+# two residues below 2^60 is below 2^120, so 256 of them stay below 2^128.
+_SUM_WINDOW = 256
+
+
+class _ConvertConstants:
+    """Device constants of one converter: the input's Shoup scaling, the
+    change matrix as 16-bit digits (4, k_out, k_in, 1), and the output
+    moduli with their Barrett ratios."""
+
+    def __init__(self, conv: HostBaseConverter, device):
+        ib, ob = conv.ibase, conv.obase
+        self.inv_op, self.inv_qt = _cshoup(conv.inv_punct, ib.values, device)
+        self.iq = _c(ib.values, device)
+        self.digits = torch.tensor([[[[(m >> (16 * b)) & _M16] for m in row] for row in conv.matrix]
+                                    for b in range(4)], dtype=torch.int64, device=device)
+        self.oq = _c(ob.values, device)
+        self.oratio_lo, self.oratio_hi = _ratio(ob.values, device)
+
+
+def _convert_constants(conv: HostBaseConverter, device) -> _ConvertConstants:
+    key = ("convert", str(device))
+    if key not in conv.device_cache:
+        conv.device_cache[key] = _ConvertConstants(conv, device)
+    return conv.device_cache[key]
+
+
+def _contract(temp: torch.Tensor, c: _ConvertConstants) -> torch.Tensor:
+    """sum_i temp[..., i, :] * matrix[j, i] mod p_j, exact: (..., k_in, n)
+    residues below 2^60 -> (..., k_out, n) in [0, p_j).
+
+    Each input residue is split into 32-bit words x_a and each matrix entry
+    into 16-bit digits m_b; a product x_a * m_b is below 2^48, so a sum over
+    at most 256 input limbs is below 2^56 and exact in int64.  The six
+    partial sums (one per 16-bit offset) carry into the u128 value of the
+    whole sum, which one Barrett reduction takes mod p_j: the same residue
+    as the JAX package's u128 accumulation with its guard every 64
+    summands.  The sums run over all input limbs at once (one broadcast
+    product and one sum per word), so the launches do not grow with k_in;
+    wider inputs (k_in > 256) add their windows' residues mod p_j.
+    """
+    k_in = temp.shape[-2]
+    out = None
+    for lo in range(0, k_in, _SUM_WINDOW):
+        part = temp[..., None, None, lo:lo + _SUM_WINDOW, :]              # (..., 1, 1, w, n)
+        digits = c.digits[:, :, lo:lo + _SUM_WINDOW]                         # (4, k_out, w, 1)
+        p_lo = (digits * (part & _M32)).sum(-2)                              # (..., 4, k_out, n) < 2^56
+        p_hi = (digits * (part >> 32)).sum(-2)
+        # p[s] is the sum at bit offset 16 s
+        p = [p_lo[..., 0, :, :], p_lo[..., 1, :, :], p_lo[..., 2, :, :] + p_hi[..., 0, :, :],
+             p_lo[..., 3, :, :] + p_hi[..., 1, :, :], p_hi[..., 2, :, :], p_hi[..., 3, :, :]]
+        words = [p[0] + ((p[1] & _M16) << 16),
+                 p[2] + ((p[3] & _M16) << 16) + (p[1] >> 16),
+                 p[4] + ((p[5] & _M16) << 16) + (p[3] >> 16),
+                 p[5] >> 16]
+        for w in range(3):
+            words[w + 1] = words[w + 1] + (words[w] >> 32)
+            words[w] = words[w] & _M32
+        acc = (U._join(words[0], words[1]), U._join(words[2], words[3]))
+        red = U.barrett_reduce_128(acc, c.oq, c.oratio_lo, c.oratio_hi)
+        out = red if out is None else U.add_mod(out, red, c.oq)
+    return out
+
+
+def fast_convert_array(x: torch.Tensor, conv: HostBaseConverter) -> torch.Tensor:
+    """Fast base conversion: (..., k_in, n) over the converter's input base
+    -> (..., k_out, n) over its output base (rns.cpp:418-465): scale by the
+    (prescaled) inverse punctured products, then the exact contraction with
+    the change matrix."""
+    c = _convert_constants(conv, x.device)
+    return _contract(U.mul_mod_shoup(x, c.inv_op, c.inv_qt, c.iq), c)
+
+
+# ---------------------------------------------------------------------------
+# The BEHZ toolchain of the BFV multiply (rns.cpp:903-1131)
+# ---------------------------------------------------------------------------
+
+class _BEHZConstants:
+    """Device constants of one level's BEHZ steps and BFV decryption."""
+
+    def __init__(self, tool: HostRNSTool, device):
+        qv = tool.base_q.values
+        bskv = tool.base_Bsk.values
+        mt = tool.m_tilde.value
+        msk = tool.m_sk.value
+        self.q = _c(qv, device)
+        self.bsk = _c(bskv, device)
+        self.m_tilde = _c([mt], device)
+        self.m_tilde_half = _c([mt >> 1], device)
+        self.m_tilde_corr = _c([q - mt for q in bskv], device)
+        self.neg_inv_q_mt = _cshoup([tool.neg_inv_prod_q_mod_m_tilde], [mt], device)
+        self.prod_q_bsk = _cshoup(tool.prod_q_mod_Bsk, bskv, device)
+        self.inv_mt_bsk = _cshoup(tool.inv_m_tilde_mod_Bsk, bskv, device)
+        self.inv_q_bsk = _cshoup(tool.inv_prod_q_mod_Bsk, bskv, device)
+        self.m_sk = _c([msk], device)
+        self.m_sk_half_up = _c([(msk >> 1) + 1], device)
+        self.inv_B_msk = _cshoup([tool.inv_prod_B_mod_m_sk], [msk], device)
+        self.prod_B_q = _cshoup(tool.prod_B_mod_q, qv, device)
+        self.neg_prod_B_q = _cshoup([(qi - p) % qi for p, qi in zip(tool.prod_B_mod_q, qv)], qv, device)
+        if tool.base_t_gamma is not None:
+            t, gamma = tool.t.value, tool.gamma.value
+            self.prod_t_gamma_q = _cshoup(tool.prod_t_gamma_mod_q, qv, device)
+            self.t_gamma = _c([t, gamma], device)
+            self.neg_inv_q_t_gamma = _cshoup(tool.neg_inv_q_mod_t_gamma, [t, gamma], device)
+            self.t = _c([t], device)
+            self.t_ratio_hi = _ratio([t], device)[1]
+            self.gamma = _c([gamma], device)
+            self.gamma_half_up = _c([(gamma >> 1) + 1], device)
+            self.inv_gamma_t = _cshoup([tool.inv_gamma_mod_t], [t], device)
+
+
+def _behz_constants(tool: HostRNSTool, device) -> _BEHZConstants:
+    key = ("behz", str(device))
+    if key not in tool.device_cache:
+        tool.device_cache[key] = _BEHZConstants(tool, device)
+    return tool.device_cache[key]
+
+
+def fastbconv_m_tilde(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """q -> Bsk U {m_tilde} of x * m_tilde (rns.cpp:1086-1131): one
+    conversion through the merged, m_tilde-prescaled converter."""
+    return fast_convert_array(x, tool.conv_q_to_Bsk_m_tilde_scaled)
+
+
+def sm_mrq(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """Small Montgomery reduction mod q, Bsk U {m_tilde} -> Bsk (rns.cpp:979):
+    (x + q * r_m_tilde) * m_tilde^-1 mod Bsk, with r_m_tilde =
+    -x * q^-1 mod m_tilde centered (r >= m_tilde / 2 counts as r - m_tilde)."""
+    c = _behz_constants(tool, x.device)
+    k_bsk = tool.base_Bsk.size
+    r = U.mul_mod_shoup(x[..., k_bsk:, :], *c.neg_inv_q_mt, c.m_tilde)
+    centered = torch.where(r >= c.m_tilde_half, r + c.m_tilde_corr, r)
+    # the Shoup product is exact for any 64-bit multiplicand
+    inner = U.add_mod(U.mul_mod_shoup(centered, *c.prod_q_bsk, c.bsk), x[..., :k_bsk, :], c.bsk)
+    return U.mul_mod_shoup(inner, *c.inv_mt_bsk, c.bsk)
+
+
+def fast_floor(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """floor(x / q), q U Bsk -> Bsk (rns.cpp:1041-1085): ``x`` (..., k + k_bsk, n)
+    holds the q limbs first."""
+    c = _behz_constants(tool, x.device)
+    k = tool.base_q.size
+    dest = fast_convert_array(x[..., :k, :], tool.conv_q_to_Bsk)
+    # (x_bsk + q - dest) * q^-1 mod Bsk; the lazy difference is fine for Shoup
+    return U.mul_mod_shoup(x[..., k:, :] + c.bsk - dest, *c.inv_q_bsk, c.bsk)
+
+
+def fastbconv_sk(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """Shenoy-Kumaresan conversion Bsk -> q (rns.cpp:903-978); the two
+    conversions (B -> q and B -> m_sk) run as one to q U {m_sk}."""
+    c = _behz_constants(tool, x.device)
+    k_B = tool.base_B.size
+    k = tool.base_q.size
+    both = fast_convert_array(x[..., :k_B, :], tool.conv_B_to_q_m_sk)
+    dest = both[..., :k, :]
+    # alpha = (temp + (m_sk - x_sk)) * B^-1 mod m_sk
+    alpha = U.mul_mod_shoup(both[..., k:, :] + c.m_sk - x[..., k_B:, :], *c.inv_B_msk, c.m_sk)
+    branch_hi = U.add_mod(U.mul_mod_shoup(U.neg_mod(alpha, c.m_sk), *c.prod_B_q, c.q), dest, c.q)
+    branch_lo = U.add_mod(U.mul_mod_shoup(alpha, *c.neg_prod_B_q, c.q), dest, c.q)
+    return torch.where(alpha >= c.m_sk_half_up, branch_hi, branch_lo)
+
+
+def decrypt_scale_and_round(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """BFV's decryption tail (rns.cpp:1133-1192): round(t/q * x) mod t
+    through the {t, gamma} base.  ``x``: (..., k, n) phase over q; returns
+    (..., 1, n) in [0, t)."""
+    c = _behz_constants(tool, x.device)
+    temp = U.mul_mod_shoup(x, *c.prod_t_gamma_q, c.q)
+    tg = U.mul_mod_shoup(fast_convert_array(temp, tool.conv_q_to_t_gamma), *c.neg_inv_q_t_gamma, c.t_gamma)
+    t_part, g_part = tg[..., 0:1, :], tg[..., 1:2, :]
+    add_result = U.add_mod(t_part, U.barrett_reduce_64(c.gamma - g_part, c.t, c.t_ratio_hi), c.t)
+    sub_result = U.sub_mod(t_part, U.barrett_reduce_64(g_part, c.t, c.t_ratio_hi), c.t)
+    out = torch.where(g_part >= c.gamma_half_up, add_result, sub_result)
+    return U.mul_mod_shoup(out, *c.inv_gamma_t, c.t)
 
 
 def slice_limbs(t: LimbTables, start: int, stop: int) -> LimbTables:

@@ -9,9 +9,10 @@ axes and the RNS limbs over the ``limb`` axis, and each rank runs the same
 bodies on its own ciphertexts and limbs (``parallel/sharded.py``; kernel B
 takes the batch on its grid's second axis).
 
-Every result equals the single-device evaluator's bit for bit.
-``multiply_many`` (BFV and BGV only) raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+Every result equals the single-device evaluator's bit for bit.  BFV runs
+on one device (the BEHZ multiply of ``bfv_bodies.py``, the key switch on
+coefficient form); BFV data on a mesh raises ``NotImplementedError``
+naming ROADMAP.md item 13, and BGV item 10.
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from .. import bfv_bodies
 from ..ckks_bodies import convolve, galois
 from ..context import ContextData, SealContext
 from ..data import Ciphertext, GaloisKeys, Plaintext, RelinKeys
 from ..evaluator import (Evaluator, _is_scale_within_bounds, add_sub_padded, add_sub_plain, are_same_scale,
-                         drop_limbs, multiply_plain_normal_body, rotate_by_steps)
+                         drop_limbs, galois_tables, multiply_plain_normal_body, multiply_tree, plain_term,
+                         rotate_by_steps)
 from ..ops import ntt as NTT
 from ..ops import rns as R
 from ..ops import u64 as U
@@ -34,10 +37,6 @@ from . import sharded
 from .mesh import HEMesh, ShardedTensor, shard_batch
 
 Data = Union[torch.Tensor, ShardedTensor]
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, item {item})")
 
 
 @dataclass
@@ -98,9 +97,19 @@ class BatchEvaluator:
         cd = self.context.get_context_data(batch.parms_id)
         if cd is None:
             raise ValueError("ciphertexts are not valid for encryption parameters")
-        if cd.parms.scheme != SchemeType.CKKS:
+        if cd.parms.scheme == SchemeType.BGV:
             raise not_ported(cd.parms.scheme)
+        if cd.parms.scheme == SchemeType.BFV and isinstance(batch.data, ShardedTensor):
+            raise sharded.bfv_not_ported()
         return cd
+
+    @staticmethod
+    def _check_form(batch: CiphertextBatch, cd: ContextData) -> None:
+        """The form a key switch needs (switch_key_inplace, evaluator.cpp:2600-2611)."""
+        if cd.parms.scheme == SchemeType.BFV and batch.is_ntt_form:
+            raise ValueError("BFV encrypted cannot be in NTT form")
+        if cd.parms.scheme == SchemeType.CKKS and not batch.is_ntt_form:
+            raise ValueError("CKKS encrypted must be in NTT form")
 
     def _check_key(self, keys) -> None:
         """Key validity rails mirroring Evaluator._switch_key / relinearize
@@ -120,6 +129,10 @@ class BatchEvaluator:
         if b1.parms_id != b2.parms_id:
             raise ValueError("parameter mismatch")
         cd = self._cd(b1)
+        if cd.parms.scheme == SchemeType.BFV:
+            if b1.is_ntt_form or b2.is_ntt_form:
+                raise ValueError("BFV operands cannot be in NTT form")
+            return self._like(b1, bfv_bodies.multiply(b1.data, b2.data, cd))
         if not (b1.is_ntt_form and b2.is_ntt_form):
             raise ValueError("CKKS operands must be in NTT form")
         out_scale = b1.scale * b2.scale
@@ -139,8 +152,7 @@ class BatchEvaluator:
         self._check_key(relin_keys)
         if batch.size != 3:
             raise ValueError("batched relinearize currently supports size-3 inputs")
-        if not batch.is_ntt_form:
-            raise ValueError("CKKS encrypted must be in NTT form")
+        self._check_form(batch, cd)
         key = relin_keys.key(2)
         self._check_key_limbs(key, cd)
         if isinstance(batch.data, ShardedTensor):
@@ -151,6 +163,8 @@ class BatchEvaluator:
 
     def rescale_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
         cd = self._cd(batch)
+        if cd.parms.scheme != SchemeType.CKKS:
+            raise ValueError("unsupported scheme")
         next_cd = cd.next_context_data
         if next_cd is None:
             raise ValueError("end of modulus switching chain reached")
@@ -193,10 +207,17 @@ class BatchEvaluator:
 
     # -- level management --------------------------------------------------
     def mod_switch_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
-        """The CKKS modulus switch: drop the last limb, as the evaluator's
-        mod_switch_to_next (the scale variant of BFV and BGV waits for
-        those schemes)."""
-        return self.mod_reduce_to_next(batch)
+        """The evaluator's mod_switch_to_next over the batch: CKKS drops the
+        last limb, BFV divides and rounds by it on the coefficients."""
+        cd = self._cd(batch)
+        if cd.parms.scheme == SchemeType.CKKS:
+            return self.mod_reduce_to_next(batch)
+        next_cd = cd.next_context_data
+        if next_cd is None:
+            raise ValueError("end of modulus switching chain reached")
+        if batch.is_ntt_form:
+            raise ValueError("BFV encrypted cannot be in NTT form")
+        return self._like(batch, R.divide_and_round_q_last(batch.data, cd.rns_tool), parms_id=next_cd.parms_id)
 
     def mod_reduce_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
         """Drop the last limb (mod_reduce_to_next, evaluator.cpp:1597-1648)."""
@@ -204,7 +225,7 @@ class BatchEvaluator:
         next_cd = cd.next_context_data
         if next_cd is None:
             raise ValueError("end of modulus switching chain reached")
-        if not _is_scale_within_bounds(batch.scale, next_cd):
+        if cd.parms.scheme == SchemeType.CKKS and not _is_scale_within_bounds(batch.scale, next_cd):
             raise ValueError("scale out of bounds")
         return self._like(batch, drop_limbs(batch.data, len(next_cd.parms.coeff_modulus)),
                           parms_id=next_cd.parms_id)
@@ -221,26 +242,25 @@ class BatchEvaluator:
         self._check_key(galois_keys)
         key = galois_keys.key(galois_elt)
         self._check_key_limbs(key, cd)
-        if not batch.is_ntt_form:
-            raise ValueError("CKKS encrypted must be in NTT form")
+        self._check_form(batch, cd)
         if isinstance(batch.data, ShardedTensor):
             data = sharded.galois(self.ev._plan, cd, batch.data, galois_elt, key)
         else:
-            table = cd.galois_tool.ntt_index(galois_elt, batch.data.device)
-            data = galois(self.ev._plan(cd), batch.data, table, key["c0"], key["c1"])
+            data = galois(self.ev._plan(cd), batch.data, galois_tables(cd, galois_elt, batch.data.device),
+                          key["c0"], key["c1"])
         return self._like(batch, data)
 
     def _rows_columns_scheme(self):
-        scheme = self.context.first_context_data().parms.scheme
-        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+        if self.context.first_context_data().parms.scheme not in (SchemeType.BFV, SchemeType.BGV):
             raise ValueError("unsupported scheme")
-        raise not_ported(scheme)
 
     def rotate_rows(self, batch: CiphertextBatch, steps: int, galois_keys: GaloisKeys) -> CiphertextBatch:
         self._rows_columns_scheme()
+        return rotate_by_steps(self.apply_galois, self._cd(batch).galois_tool, batch, steps, galois_keys)
 
     def rotate_columns(self, batch: CiphertextBatch, galois_keys: GaloisKeys) -> CiphertextBatch:
         self._rows_columns_scheme()
+        return self.apply_galois(batch, 2 * self._cd(batch).parms.poly_modulus_degree - 1, galois_keys)
 
     def rotate_vector(self, batch: CiphertextBatch, steps: int, galois_keys: GaloisKeys) -> CiphertextBatch:
         if self.context.first_context_data().parms.scheme != SchemeType.CKKS:
@@ -287,14 +307,9 @@ class BatchEvaluator:
 
     def _add_sub_plain(self, batch: CiphertextBatch, plain: Plaintext, is_add: bool) -> CiphertextBatch:
         cd = self._cd(batch)
-        if not batch.is_ntt_form or not plain.is_ntt_form:
-            raise ValueError("CKKS operands must be in NTT form")
-        if batch.parms_id != plain.parms_id:
-            raise ValueError("encrypted and plain parameter mismatch")
-        if not are_same_scale(batch.scale, plain.scale):
-            raise ValueError("scale mismatch")
+        term = plain_term(batch, plain, cd)
         data = self.ev._limbwise(cd, batch.data, lambda x, t, lo, hi: add_sub_plain(
-            x, plain.rns_data[lo:hi].to(x.device), t.q, is_add))
+            x, term[lo:hi].to(x.device), t.q, is_add))
         return self._like(batch, data)
 
     # -- NTT transforms ----------------------------------------------------
@@ -312,6 +327,7 @@ class BatchEvaluator:
         return self._like(batch, self.ev._limbwise(cd, batch.data, lambda x, t, lo, hi: NTT.inverse(x, t)),
                           is_ntt_form=False)
 
-    # -- not ported yet ---------------------------------------------------
-    def multiply_many(self, batches, *args, **kwargs):
-        raise _unported("BatchEvaluator.multiply_many (BFV and BGV only)", 9)
+    def multiply_many(self, batches: Sequence[CiphertextBatch], relin_keys: RelinKeys) -> CiphertextBatch:
+        """Binary-tree product over batches, relinearizing after each
+        multiply (BFV only; evaluator.cpp:1649-1724)."""
+        return multiply_tree(self, batches, relin_keys)

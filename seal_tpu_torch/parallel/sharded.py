@@ -1,5 +1,4 @@
 """The mesh bodies of the CKKS server ops, on sharded (..., size, k, n) data.
-
 Data split over a mesh (``parallel/mesh.py``) has its RNS limbs (axis -2)
 split over the limb axis and, for batches, its leading axis over the data
 (and host) axes.  Each rank runs the single-device bodies
@@ -21,7 +20,8 @@ split over the limb axis and, for batches, its leading axis over the data
 Every result equals the single-device body's bit for bit.  ``plan_for(cd,
 device)`` gives the key-switch constants of a level on a device; the
 evaluators pass their cache of them.  Both ``Evaluator(mesh=...)`` and
-``parallel/batch.BatchEvaluator`` run these bodies.
+``parallel/batch.BatchEvaluator`` run these bodies.  BFV data on a mesh is
+not ported yet (:func:`bfv_not_ported`, ROADMAP.md item 13).
 """
 
 from __future__ import annotations
@@ -40,6 +40,13 @@ from .mesh import ShardedTensor, split_bounds
 from .shard_ops import gather_add_mod
 
 PlanFor = Callable[[ContextData, torch.device], KeySwitchPlan]
+
+
+def bfv_not_ported() -> NotImplementedError:
+    """The error for BFV data sharded over a mesh: the BEHZ multiply's base
+    conversions contract over every q limb, and this layer has no gather
+    for them yet."""
+    return NotImplementedError("BFV on a mesh is not ported yet (ROADMAP.md queue 1, item 13)")
 
 
 def _limb_groups(st: ShardedTensor) -> List[List[int]]:

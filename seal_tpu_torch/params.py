@@ -34,7 +34,6 @@ class SchemeType(enum.IntEnum):
 
 
 _NOT_PORTED = {
-    SchemeType.BFV: "BFV is not ported yet (ROADMAP.md queue 1, item 9)",
     SchemeType.BGV: "BGV is not ported yet (ROADMAP.md queue 1, item 10)",
 }
 

@@ -5,7 +5,7 @@ Port of ``seal_tpu/random/prng.py`` (counterpart of
 counter-mode XOF refilled in 4 KiB buffers.  SHAKE-256 comes from
 ``hashlib``; BLAKE2xb from the port's copy of the C source
 (``csrc/blake2.c``), compiled with ``cc`` at first use into the package's
-gitignored ``build/`` directory and loaded with ``ctypes``.
+gitignored ``build/`` directory and loaded with ``ctypes`` (``host_c.py``).
 
 blake2xb construction (cf. ``util/blake2xb.c:36-140``):
   root  = blake2b(input, key=seed, fanout=1, depth=1, xof_length=outlen)
@@ -22,30 +22,19 @@ import functools
 import hashlib
 import os
 import struct
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
+
+from .. import host_c
 
 PRNG_SEED_UINT64_COUNT = 8
 PRNG_SEED_BYTE_COUNT = PRNG_SEED_UINT64_COUNT * 8
 _BUFFER_SIZE = 4096
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "blake2.c"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-
 
 @functools.cache
 def _native() -> ctypes.CDLL:
     """The BLAKE2 library, compiled from ``csrc/blake2.c`` at first use."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libblake2-{digest}.so"
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
-        subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(_SOURCE)],
-                       check=True, capture_output=True)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = host_c.load("blake2")
     lib.seal_blake2xb.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t,
                                   ctypes.c_char_p, ctypes.c_size_t]
     lib.seal_blake2xb_fill.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64, ctypes.c_char_p]

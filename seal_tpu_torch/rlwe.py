@@ -1,13 +1,14 @@
 """RLWE encryptions of zero: the core of keygen and encryption.
 
 Port of the host-sampled path of ``seal_tpu/rlwe.py`` (counterpart of
-``util/rlwe.cpp:190-407``), in NTT form: keys and CKKS ciphertexts.
-Sampling runs on the host (numpy over the deterministic PRNG byte stream,
-in the reference's draw order); the ring arithmetic runs on the context's
-device, every NTT through ``ops/ntt.py``.  The JAX package's device-sampled
-path (``ops/blake2_dev.py``) gives the same bytes and waits for a later
-slice (ROADMAP.md queue 1, item 6); BFV's coefficient-form encryptions and
-BGV's noise times t arrive with those schemes.
+``util/rlwe.cpp:190-407``): in NTT form for keys and CKKS ciphertexts, in
+coefficient form for BFV ciphertexts (``is_ntt_form=False``).  Sampling
+runs on the host (numpy over the deterministic PRNG byte stream, in the
+reference's draw order, the same for both forms); the ring arithmetic runs
+on the context's device, every NTT through ``ops/ntt.py``.  The JAX
+package's device-sampled path (``ops/blake2_dev.py``) gives the same bytes
+and waits for a later slice (ROADMAP.md queue 1, item 6); BGV's noise
+times t arrives with BGV (item 10).
 """
 
 from __future__ import annotations
@@ -33,12 +34,15 @@ def _check_scheme(parms):
 
 
 def encrypt_zero_symmetric(secret_key: SecretKey, context: SealContext, parms_id: ParmsId,
-                           save_seed: bool = False) -> Ciphertext:
-    """(c0, c1) = ([-(a s + e)]_q, a) in NTT form (rlwe.cpp:277-407).
+                           is_ntt_form: bool, save_seed: bool = False) -> Ciphertext:
+    """(c0, c1) = ([-(a s + e)]_q, a), in NTT form or in coefficient form
+    (rlwe.cpp:277-407).
 
     ``a`` is expanded from a public seed drawn from the parameters' PRNG;
     with ``save_seed`` the seed is kept in ``seed_info`` so c1 can be
-    regenerated.
+    regenerated.  The uniform sample is a's NTT form, except in coefficient
+    form with ``save_seed``, where it is a itself (what the seed
+    regenerates).
     """
     cd = context.get_context_data(parms_id)
     parms = cd.parms
@@ -54,17 +58,24 @@ def encrypt_zero_symmetric(secret_key: SecretKey, context: SealContext, parms_id
     c1 = u64_tensor(sample_poly_uniform(ciphertext_prng, n, moduli), dev)
     noise = u64_tensor(noise_sampler_for(parms)(bootstrap_prng, n, moduli), dev)
 
-    # the uniform sample is taken as the NTT form of c1
-    c0 = U.mul_mod(secret_key.data[: len(moduli)], c1, t.q, t.ratio_lo, t.ratio_hi)
-    c0 = U.neg_mod(U.add_mod(NTT.forward(noise, t), c0, t.q), t.q)
-    ct = Ciphertext(torch.stack([c0, c1]), parms_id, True, 1.0, 1)
+    c1_ntt = NTT.forward(c1, t) if save_seed and not is_ntt_form else c1
+    c0 = U.mul_mod(secret_key.data[: len(moduli)], c1_ntt, t.q, t.ratio_lo, t.ratio_hi)
+    if is_ntt_form:
+        noise = NTT.forward(noise, t)
+    else:
+        c0 = NTT.inverse(c0, t)
+        if not save_seed:
+            c1 = NTT.inverse(c1, t)
+    c0 = U.neg_mod(U.add_mod(noise, c0, t.q), t.q)
+    ct = Ciphertext(torch.stack([c0, c1]), parms_id, is_ntt_form, 1.0, 1)
     if save_seed:
         ct.seed_info = ciphertext_prng.info()
     return ct
 
 
-def encrypt_zero_asymmetric(public_key: PublicKey, context: SealContext, parms_id: ParmsId) -> Ciphertext:
-    """c_j = pk_j u + e_j in NTT form (rlwe.cpp:190-275)."""
+def encrypt_zero_asymmetric(public_key: PublicKey, context: SealContext, parms_id: ParmsId,
+                            is_ntt_form: bool) -> Ciphertext:
+    """c_j = pk_j u + e_j, in NTT form or in coefficient form (rlwe.cpp:190-275)."""
     cd = context.get_context_data(parms_id)
     parms = cd.parms
     _check_scheme(parms)
@@ -82,4 +93,8 @@ def encrypt_zero_asymmetric(public_key: PublicKey, context: SealContext, parms_i
 
     u = NTT.forward(u, t)
     c = U.mul_mod(u, public_key.data.data[:, :k], t.q, t.ratio_lo, t.ratio_hi)     # (size, k, n)
-    return Ciphertext(U.add_mod(NTT.forward(noise, t), c, t.q), parms_id, True, 1.0, 1)
+    if is_ntt_form:
+        noise = NTT.forward(noise, t)
+    else:
+        c = NTT.inverse(c, t)
+    return Ciphertext(U.add_mod(noise, c, t.q), parms_id, is_ntt_form, 1.0, 1)

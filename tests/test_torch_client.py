@@ -264,13 +264,18 @@ def test_convert_round_trips(pair):
 
 
 def test_unported_client_parts_raise(pair):
-    parms = P.EncryptionParameters(P.SchemeType.BFV)
+    """BGV's client (BFV's is ported, tests/test_torch_bfv.py)."""
+    parms = P.EncryptionParameters(P.SchemeType.BGV)
     parms.set_poly_modulus_degree(1024)
     parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40, 40]))
     parms.set_plain_modulus(P.Modulus(65537))
     ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.Encryptor(ctx, secret_key=P.KeyGenerator(ctx).secret_key)
+    sk = P.KeyGenerator(ctx).secret_key
+    with pytest.raises(NotImplementedError, match="item 10"):
+        P.Encryptor(ctx, secret_key=sk)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        P.Decryptor(ctx, sk).invariant_noise_budget(P.Ciphertext(torch.zeros((2, 2, 1024), dtype=torch.int64),
+                                                                 ctx.first_parms_id, True, 1.0))
 
 
 # -- (g) the round trip --------------------------------------------------------

@@ -25,6 +25,7 @@ from seal_tpu_torch.ops.cuda_four_step import stage_cuda
 from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
 from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
 from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
+from seal_tpu_torch.ops.rns import slice_limbs
 from seal_tpu_torch.ops.cuda_corner_turn import corner_turn_cuda
 from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
 from seal_tpu_torch.parallel.dist_ntt import DistNTT
@@ -447,3 +448,76 @@ def test_corner_turn_wrapper_refuses_cpu_tensors():
     x = torch.zeros((1, 2, 1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
         corner_turn_cuda([x, x], [torch.zeros((1, 1, 2, 4), dtype=torch.int64)] * 2)
+
+
+# -- BFV (golden.bfv_context: bfv_default(n), t = PlainModulus.batching(n, 20)) --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_ntt_kernel_matches_plain_on_the_behz_tables(card, n):
+    """The BFV multiply's two transforms over q U Bsk (the t-scaled inverse
+    included) at a request's shapes and a batch of 4's, and the key-switch
+    tail's inverse NTTs."""
+    ctx = golden.bfv_context(n, card)
+    cd = ctx.first_context_data()
+    t = cd.behz_limb_tables()
+    rows = t.q.shape[0]
+    key_t = ctx.key_context_data().limb_tables()
+    k = len(cd.coeff_modulus_values)
+    cases = [(t, (4, rows, n), False), (t, (3, rows, n), True), (t, (4, 4, rows, n), False),
+             (t, (4, 3, rows, n), True), (slice_limbs(key_t, k, k + 1), (2, 1, n), True),
+             (slice_limbs(key_t, 0, k), (2, k, n), True)]
+    for i, (tab, shape, inverse) in enumerate(cases):
+        x = _uniform(shape, tab.q * (2 if inverse else 4), card, i)
+        want = ntt_inverse(x, tab) if inverse else ntt_forward(x, tab)
+        assert torch.equal(ntt_cuda(x, tab, inverse), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_switch_key_kernel_without_diagonal_at_bfv_shapes(card, n):
+    """BFV's relinearization: a coefficient-form target, no diagonal (D=4,
+    Rn=5 at N=8192; D=15, Rn=16 at N=32768), one ciphertext and a batch of 4."""
+    ctx = golden.bfv_context(n, card)
+    cd = ctx.first_context_data()
+    plan = Evaluator(ctx)._plan(cd)
+    D, sel = plan.D, plan.sel_tables
+    assert (D, sel.q.shape[0]) == ((4, 5) if n == 8192 else (15, 16))
+    key = _uniform((2, D, D + 1, n), sel.q, card, 1)
+    for shape in ((D, n), (4, D, n)):
+        t_c = _uniform(shape, cd.limb_tables().q, card, len(shape))
+        got = switch_key_contract_cuda(t_c, None, key, sel, plan.need_reduce)
+        assert torch.equal(got, switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_bfv_request_on_card_gives_bfv_digest(card, n):
+    """build_bfv_mult_relin through the kernels: the JAX package's digest,
+    equal to the plain path on the card, 4 launches of kernel A and 1 of
+    kernel B, none of the stage kernel; a batch of 2 through
+    BatchEvaluator equal to the single requests, with 1 launch of B."""
+    from seal_tpu_torch.pipeline import build_bfv_mult_relin
+
+    ctx = golden.bfv_context(n, card)
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, card)
+    key = rk.key(2)
+    pairs = [golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r) for r in range(2)]
+    cts = [[ciphertext_from_numpy(d, ctx.first_parms_id, False, 1.0, card) for d in pair] for pair in pairs]
+    fn = build_bfv_mult_relin(ctx)
+    before = (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+    out = fn(cts[0][0].data, cts[0][1].data, key["c0"], key["c1"])
+    after = (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+    assert [y - x for x, y in zip(before, after)] == [4, 1, 0]
+    assert golden.digest(u64_to_numpy(out)) == (golden.BFV_DIGEST if n == 8192 else golden.BFV_MEDIUM_DIGEST)
+    with NTT.plain_on_card():
+        assert torch.equal(fn(cts[0][0].data, cts[0][1].data, key["c0"], key["c1"]), out)
+    ev, bev = Evaluator(ctx), BatchEvaluator(ctx)
+    singles = [ev.relinearize(ev.multiply(a, b), rk).data for a, b in cts]
+    assert torch.equal(singles[0], out)
+    before = switch_key_contract_cuda.launches
+    batch = bev.relinearize(bev.multiply(CiphertextBatch.from_ciphertexts([a for a, _ in cts]),
+                                         CiphertextBatch.from_ciphertexts([b for _, b in cts])), rk)
+    assert switch_key_contract_cuda.launches == before + 1
+    for r in range(2):
+        assert torch.equal(batch.data[r], singles[r])

@@ -348,20 +348,37 @@ def test_rejections_equal_jax(env):
                 fn()
 
 
-def test_bfv_contexts_raise_not_ported():
-    parms = P.EncryptionParameters(P.SchemeType.BFV)
+def _scheme_context(scheme):
+    parms = P.EncryptionParameters(scheme)
     parms.set_poly_modulus_degree(64)
     parms.set_coeff_modulus(P.CoeffModulus.create(64, [40, 40, 40]))
     parms.set_plain_modulus(P.Modulus(257))
-    ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
+    return P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
+
+
+def test_bfv_contexts_raise_not_ported():
+    """BFV is ported on one device (tests/test_torch_bfv.py); its data on a
+    mesh raises naming ROADMAP item 13, and BGV's ops item 10."""
+    from seal_tpu_torch.parallel.mesh import make_mesh
+
+    bfv = _scheme_context(P.SchemeType.BFV)
+    mev = P.Evaluator(bfv, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
+    sharded = mev.shard(P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), bfv.first_parms_id, False, 1.0))
+    for call in (lambda: mev.multiply(sharded, sharded), lambda: mev.mod_switch_to_next(sharded),
+                 lambda: mev.negate(sharded)):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            call()
+    ctx = _scheme_context(P.SchemeType.BGV)
     ev = P.Evaluator(ctx)
-    ct = P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), ctx.first_parms_id, False, 1.0)
+    ct = P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), ctx.first_parms_id, True, 1.0)
     gk = P.GaloisKeys()
     gk.parms_id = ctx.key_parms_id
-    for call in (lambda: ev.rotate_rows(ct, 1, gk), lambda: ev.rotate_columns(ct, gk),
+    gk.keys = [None] * 64
+    gk.keys[1] = {"c0": torch.zeros((2, 3, 64), dtype=torch.int64), "c1": torch.zeros((2, 3, 64), dtype=torch.int64)}
+    for call in (lambda: ev.rotate_rows(ct, 1, gk), lambda: ev.multiply(ct, ct),
                  lambda: ev.multiply_plain(ct, P.Plaintext.from_coeffs([1])), lambda: ev.mod_switch_to_next(ct),
-                 lambda: ev.multiply_many([ct, ct], None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 lambda: ev.multiply_many([ct, ct], None), lambda: ev.add_plain(ct, P.Plaintext.from_coeffs([1]))):
+        with pytest.raises(NotImplementedError, match="item 10"):
             call()
     with pytest.raises(ValueError, match="unsupported scheme"):
         ev.rotate_vector(ct, 1, gk)

@@ -273,27 +273,38 @@ def test_collectives_follow_lax_layouts():
         C.gather_range(pieces[:1], ranges[:1], 2, 6, 0, "cpu")
 
 
+def _scheme_context(scheme):
+    parms = P.EncryptionParameters(scheme)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    parms.set_plain_modulus(P.Modulus(257))
+    return P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
+
+
 def test_unported_batch_methods_name_their_roadmap_item(state):
+    """BFV batches on a mesh name ROADMAP item 13 (BFV on one device is
+    ported, tests/test_torch_bfv.py), BGV batches item 10."""
     bev = BatchEvaluator(state["ctx"])
     b1, _ = _batches(state)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bev.multiply_many([b1, b1], state["rk"])
-    for method, args in (("rotate_rows", (1, None)), ("rotate_columns", (None,))):
+    for call in (lambda: bev.rotate_rows(b1, 1, None), lambda: bev.rotate_columns(b1, None),
+                 lambda: bev.multiply_many([b1, b1], state["rk"])):
         with pytest.raises(ValueError, match="unsupported scheme"):
-            getattr(bev, method)(b1, *args)
-    bfv = P.EncryptionParameters(P.SchemeType.BFV)
-    bfv.set_poly_modulus_degree(N)
-    bfv.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    bfv.set_plain_modulus(P.Modulus(257))
-    bctx = P.SealContext(bfv, True, P.SecurityLevel.NONE, device="cpu")
+            call()
     data = torch.zeros((2, 2, len(BITS) - 1, N), dtype=torch.int64)
-    batch = CiphertextBatch(data, bctx.first_parms_id, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchEvaluator(bctx).multiply(batch, batch)
-    for method, args in (("rotate_rows", (1, None)), ("rotate_columns", (None,)),
+    bctx = _scheme_context(P.SchemeType.BFV)
+    mesh_bev = BatchEvaluator(bctx, make_mesh(8, limb_parallel=2, devices=CPU8))
+    sharded_batch = mesh_bev.shard(CiphertextBatch(data, bctx.first_parms_id, False))
+    for method, args in (("multiply", (sharded_batch,)), ("mod_switch_to_next", ()), ("negate", ())):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            getattr(mesh_bev, method)(sharded_batch, *args)
+    gctx = _scheme_context(P.SchemeType.BGV)
+    batch = CiphertextBatch(data, gctx.first_parms_id, True)
+    for method, args in (("multiply", (batch,)), ("rotate_rows", (1, None)), ("rotate_columns", (None,)),
                          ("multiply_plain", (P.Plaintext.from_coeffs([1]),)), ("mod_switch_to_next", ())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(BatchEvaluator(bctx), method)(batch, *args)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            getattr(BatchEvaluator(gctx), method)(batch, *args)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        BatchEvaluator(gctx).multiply_many([batch, batch], None)
 
 
 # -- (f) the batched Galois, plaintext and transform methods ---------------------

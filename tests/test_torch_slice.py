@@ -192,14 +192,15 @@ def test_context_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_schemes_raise_not_implemented():
-    parms = P.EncryptionParameters(P.SchemeType.BFV)
+    """BGV (BFV is ported, tests/test_torch_bfv.py)."""
+    parms = P.EncryptionParameters(P.SchemeType.BGV)
     parms.set_poly_modulus_degree(1024)
     parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40, 40]))
     parms.set_plain_modulus(P.Modulus(65537))
     ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
     ev = Evaluator(ctx)
     data = torch.zeros((2, 2, 1024), dtype=torch.int64)
-    ct = P.Ciphertext(data, ctx.first_parms_id, False, 1.0)
+    ct = P.Ciphertext(data, ctx.first_parms_id, True, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ev.multiply(ct, ct)
 
