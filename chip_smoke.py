@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's CKKS and BFV paths on one NVIDIA card, kernels checked.
+"""Drive the port's CKKS, BFV and BGV paths on one NVIDIA card, kernels checked.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and
@@ -120,7 +120,32 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        rotate_rows(1) -> rotate_columns -> mod_switch_to_next equal to the
        plain path, decoded equal to numpy's slot-wise product mod t with the
        rows rotated and the columns swapped; the invariant noise budget
-       before and after, above 0.
+       before and after, above 0;
+12. BGV (``golden.bgv_context``: phase 11's chain and t as a BGV context),
+   at N=8192 (k=4, D=4, Rn=5) and N=32768 (k=15, D=15, Rn=16):
+   (a) kernel A bit-exact against its plain version at the BGV request's
+       transforms (the key switch's inverse of the target, the tail's
+       reduced inverse of the special-prime rows and forward of the
+       correction, the mod-t switch's inverse mod q_last and forward of the
+       correction), one request's and a batch's; kernel B with an NTT-form
+       target and the diagonal, one ciphertext and a batch; times and
+       bounds as in phases 2 and 3;
+   (b) ``golden.bgv_request`` (multiply -> relinearize -> rotate_rows(1) ->
+       mod_switch_to_next) on splitmix inputs equal to the plain path on the
+       card, to ``golden.BGV_DIGEST`` / ``BGV_MEDIUM_DIGEST`` and their
+       correction factors; 8 requests at N=8192 (4 at N=32768) sequentially
+       and as one ``BatchEvaluator`` batch, the batch equal to the
+       sequential outputs; kernel A 8 launches and kernel B 2 per request
+       and per batch, no stage-kernel launch; ms per request, launches per
+       request, device-busy share and a profiler split;
+   (c) real keys at N=8192 from a seeded BLAKE2XB factory equal to the
+       plain path on the card; three BatchEncoder vectors a, b, c encrypted
+       with the public key; x, y = mod_switch_to_next(enc a, enc b), z =
+       relinearize(multiply(x, y)) (correction factor f^2), w = add(z,
+       mod_switch_to_next(enc c)) (factor f: the balancing path), then
+       rotate_rows(1) and rotate_columns, equal to the plain path, decoded
+       equal to numpy's (a b + c) mod t with the rows rotated and the
+       columns swapped; the noise budget fresh and at the end, above 0.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -155,8 +180,9 @@ OPS_ADD64 = 2
 # One Harvey butterfly: three u64 multiplies (Shoup) and six adds,
 # subtracts and conditional subtractions.
 OPS_BUTTERFLY = 3 * OPS_MUL64 + 6 * OPS_ADD64
-# the seed of phase 11's slot vectors
+# the seeds of phase 11's and phase 12's slot vectors
 BFV_SLOT_SEED = 11
+BGV_SLOT_SEED = 12
 
 
 def check(ok, what):
@@ -1111,6 +1137,283 @@ def bfv_phase(gen):
     return result
 
 
+def bgv_phase(gen):
+    """Phase 12: BGV on the card (``golden.bgv_context``: bfv_default(n) at
+    SecurityLevel.TC128, t = PlainModulus.batching(n, 20), as a BGV
+    context).  Returns the BGV entries of kernels A and B for the kernels'
+    JSON line."""
+    from seal_tpu_torch import Decryptor, Encryptor, KeyGenerator, PRNGType, UniformRandomGeneratorFactory
+    from seal_tpu_torch import golden
+    from seal_tpu_torch.context import SealContext
+    from seal_tpu_torch.convert import ciphertext_from_numpy, galois_keys_from_numpy, relin_keys_from_numpy, u64_to_numpy
+    from seal_tpu_torch.encoders import BatchEncoder
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from seal_tpu_torch.ops import ntt as NTT
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
+    from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
+    from seal_tpu_torch.ops.rns import slice_limbs
+    from seal_tpu_torch.params import EncryptionParameters, SchemeType
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+
+    def counted(fn):
+        """fn() with the three counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+
+    result = {"ntt": {}, "switch_key": {}}
+    for n, requests in ((golden.BGV_N, 8), (golden.BGV_MEDIUM_N, 4)):
+        t_n = time.perf_counter()
+        tag = f"[bgv N={n}]"
+        ctx = golden.bgv_context(n)                      # the default device: the card
+        cd = ctx.first_context_data()
+        k = len(cd.coeff_modulus_values)
+        first_t, key_t = cd.limb_tables(), ctx.key_context_data().limb_tables()
+        ev, bev = Evaluator(ctx), BatchEvaluator(ctx)
+        plan = ev._plan(cd)
+        D, sel = plan.D, plan.sel_tables
+        Rn = sel.q.shape[0]
+        print(f"[bgv N={n}] {golden.BFV_CHAIN}, as BGV: t={cd.parms.plain_modulus.value}, k={k}, D={D}, Rn={Rn}")
+
+        # ---- (a) kernels A and B at BGV's shapes against their plain versions
+        # (label, tables, shape, inverse, calls per request)
+        cases = [("key switch: iNTT of the target", first_t, (D, n), True, 2),
+                 ("key-switch tail: iNTT mod the special prime", slice_limbs(key_t, k, k + 1), (2, 1, n), True, 2),
+                 ("key-switch tail: NTT of the correction", slice_limbs(key_t, 0, k), (2, D, n), False, 2),
+                 ("mod-t switch: iNTT mod q_last", slice_limbs(first_t, k - 1, k), (2, 1, n), True, 1),
+                 ("mod-t switch: NTT of the correction", slice_limbs(first_t, 0, k - 1), (2, k - 1, n), False, 1)]
+        cases += [(f"batch of {requests}, {label}", t, (requests, *shape), inverse, 0)
+                  for label, t, shape, inverse, _ in cases]
+        per_request = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+        for label, t, shape, inverse, calls in cases:
+            x = lazy_input(t, shape, 2 if inverse else 4, gen)
+            plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
+            got = ntt_cuda(x, t, inverse)
+            want = plain_fn()
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            check(err == 0, f"kernel A disagrees with its plain version at N={n}, {label}: max abs err {err}")
+            if not calls:
+                # the batch's shapes: checked, not timed (each profiled timing costs seconds of host time)
+                print(f"{tag} kernel A, {label} {'inverse' if inverse else 'forward'} {tuple(shape)}: bit-exact")
+                continue
+            ms, events_ms = kernel_ms(lambda: ntt_cuda(x, t, inverse), 30)
+            plain_ms = cuda_ms(plain_fn, 2, warmup=1)
+            nbytes, ops = ntt_work(x.numel() // n, shape[-2], t.log_n)
+            b, by = bound_ms(nbytes, ops)
+            print(f"{tag} kernel A, {label} {'inverse' if inverse else 'forward'} {tuple(shape)}: bit-exact (max abs "
+                  f"err {err}); kernel {ms * 1e3:.2f} us device time, {events_ms * 1e3:.2f} us back to back by events; "
+                  f"plain {plain_ms * 1e3:.1f} us by events; bound {b * 1e3:.3f} us ({by})")
+            per_request["ms"] += calls * ms
+            per_request["plain_ms"] += calls * plain_ms
+            per_request["bytes"] += calls * nbytes
+            per_request["ops"] += calls * ops
+        b_a, by_a = bound_ms(per_request["bytes"], per_request["ops"])
+        a_entry = {"ms": per_request["ms"], "plain_ms": per_request["plain_ms"], "bound_ms": b_a, "bound_by": by_a,
+                   "max_abs_err": 0}
+        b_entry = {}
+        key = lazy_input(sel, (2, D, Rn, n), 1, gen)
+        for label, shape in (("one request", (D, n)), (f"batch of {requests}", (requests, D, n))):
+            t_n_form = lazy_input(first_t, shape, 1, gen)
+            t_c = ntt_inverse(t_n_form, first_t)
+            fn = lambda: switch_key_contract_cuda(t_c, t_n_form, key, sel, plan.need_reduce)
+            got = fn()
+            want = switch_key_contract_plain(t_c, t_n_form, key, sel, plan.need_reduce)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            check(err == 0, f"kernel B disagrees with its plain version at N={n}, {label}, diagonal: {err}")
+            ms, events_ms = kernel_ms(fn, 20)
+            plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n_form, key, sel, plan.need_reduce), 2,
+                               warmup=1)
+            B = t_c.shape[0] if t_c.dim() == 3 else 1
+            nbytes, ops = switch_key_work(D, D, Rn, cd.log_n, True, B)
+            b, by = bound_ms(nbytes, ops)
+            print(f"{tag} kernel B, {label}, NTT-form target with the diagonal (B={B}, D={D}, Rn={Rn}): bit-exact "
+                  f"(max abs err {err}); kernel {ms * 1e3:.2f} us device time ({ms * 1e3 / B:.2f} us per "
+                  f"ciphertext), {events_ms * 1e3:.2f} us back to back by events; plain {plain_ms * 1e3:.1f} us by "
+                  f"events; bound {b * 1e3:.3f} us ({by})")
+            if not b_entry:
+                # one request's two key switches
+                b_entry = {"ms": 2 * ms, "plain_ms": 2 * plain_ms, "bound_ms": 2 * b, "bound_by": by,
+                           "max_abs_err": 0}
+        del key, t_c, t_n_form
+
+        # ---- (b) the requests: multiply -> relinearize -> rotate_rows(1) ->
+        # mod_switch_to_next, splitmix inputs
+        rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, "cuda")
+        galois = [None] * n
+        galois[golden.BGV_GALOIS_ELT >> 1] = golden.galois_key_inputs(ctx, golden.BGV_GALOIS_SEED)
+        gk = galois_keys_from_numpy(galois, ctx.key_parms_id, "cuda")
+        cts = [tuple(ciphertext_from_numpy(d, ctx.first_parms_id, True, 1.0, "cuda")
+                     for d in golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)) for r in range(requests)]
+        del galois
+        golden.bgv_request(ev, *cts[0], rk, gk)                 # warm-up: plans and tables
+        one, one_launches = counted(lambda: golden.bgv_request(ev, *cts[0], rk, gk))
+        with NTT.plain_on_card():
+            ref0 = golden.bgv_request(ev, *cts[0], rk, gk)
+        check(torch.equal(one.data, ref0.data), f"{tag} the request differs from the plain path on the card")
+        check(tuple(one.data.shape) == (2, k - 1, n) and one.parms_id == cd.next_context_data.parms_id
+              and one.is_ntt_form, f"{tag} the request: shape {tuple(one.data.shape)} or level wrong")
+        dig = golden.digest(u64_to_numpy(one.data))
+        want_dig, want_cf = ((golden.BGV_DIGEST, golden.BGV_CORRECTION_FACTOR) if n == golden.BGV_N
+                             else (golden.BGV_MEDIUM_DIGEST, golden.BGV_MEDIUM_CORRECTION_FACTOR))
+        check(dig == want_dig, f"{tag} BGV digest mismatch: {dig}")
+        check(one.correction_factor == want_cf, f"{tag} correction factor {one.correction_factor}, expected {want_cf}")
+        # per request: kernel A three times per key switch (the target's
+        # inverse, the tail's inverse mod the special prime and forward of the
+        # correction) and twice for the mod-t switch; kernel B once per key switch
+        check(one_launches == (8, 2, 0), f"{tag} one request launched (A, B, stage) {one_launches}; expected (8, 2, 0)")
+
+        def serve():
+            return [golden.bgv_request(ev, a, b, rk, gk) for a, b in cts]
+
+        def serve_batch():
+            return golden.bgv_request(bev, CiphertextBatch.from_ciphertexts([a for a, _ in cts]),
+                                      CiphertextBatch.from_ciphertexts([b for _, b in cts]), rk, gk)
+
+        groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel"}
+        timings = {}
+        for label, run, expect in (("sequential", serve, (8 * requests, 2 * requests, 0)),
+                                   (f"one batch of {requests}", serve_batch, (8, 2, 0))):
+            run()
+            outs, launches = counted(run)
+            check(launches == expect, f"{tag} {label}: launched (A, B, stage) {launches}; expected {expect}")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / requests)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            by_name, split = device_split(prof, groups)
+            n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+            if by_name:
+                busy = sum(by_name.values()) / 1e3
+                other = (busy - sum(split.values()) / 1e3) / requests
+                prof_line = (f"under the profiler {n_dev / requests:.1f} device launches per request, device busy "
+                             f"{busy / requests:.3f} ms per request, {100 * busy / wall_ms:.1f}% of wall "
+                             f"{wall_ms:.3f} ms; per request "
+                             + ", ".join(f"{g} {v / 1e3 / requests:.4f} ms" for g, v in split.items())
+                             + f", other kernels (plain PyTorch elementwise arithmetic, gathers, copies) {other:.3f} ms")
+                split_ms = {g: v / 1e3 / requests for g, v in split.items()}
+            else:
+                busy, split_ms = None, {}
+                prof_line = "the profiler recorded no device time: not measured"
+            median = sorted(times)[1]
+            print(f"{tag} {label}: launches for {requests} requests: kernel A {launches[0]}, kernel B {launches[1]}, "
+                  f"stage kernel {launches[2]}; ms per request over 3 runs {', '.join(f'{t:.3f}' for t in times)} "
+                  f"(median {median:.3f}); {prof_line}")
+            timings[label] = {"outs": outs, "launches": launches, "ms_per_request": median,
+                              "device_busy_ms_per_request": None if busy is None else busy / requests,
+                              "split": split_ms}
+        seq = timings["sequential"]
+        batch = timings[f"one batch of {requests}"]
+        check(batch["outs"].correction_factor == want_cf, f"{tag} the batch's correction factor differs")
+        for r in range(requests):
+            check(torch.equal(batch["outs"].data[r], seq["outs"][r].data),
+                  f"{tag} batched request {r} differs from the sequential one")
+        check(torch.equal(seq["outs"][0].data, one.data), f"{tag} the sequential request 0 differs from the counted one")
+        print(f"{tag} {requests} requests of multiply -> relinearize -> rotate_rows(1) -> mod_switch_to_next: request "
+              f"0 equal to the plain path on the card and to the JAX package's digest, correction factor {want_cf}; "
+              f"the batch equal to the sequential outputs; kernel A 8 launches per request and 8 per batch, kernel B "
+              f"2 and 2, no stage-kernel launch; {time.perf_counter() - t_n:.1f} s")
+        name = f"n{n}"
+        for kernel, entry, index in (("ntt", a_entry, 0), ("switch_key", b_entry, 1)):
+            group = "kernel A" if index == 0 else "kernel B"
+            result[kernel][name] = dict(entry, launches_per_request=one_launches[index],
+                                        launches_per_batch=batch["launches"][index],
+                                        device_ms_per_request_sequential=seq["split"].get(group),
+                                        device_ms_per_request_batched=batch["split"].get(group))
+        result["switch_key"][name].update(ms_per_request_sequential=seq["ms_per_request"],
+                                          ms_per_request_batched=batch["ms_per_request"],
+                                          device_busy_ms_per_request_sequential=seq["device_busy_ms_per_request"],
+                                          device_busy_ms_per_request_batched=batch["device_busy_ms_per_request"])
+        del cts, rk, gk, one, ref0, timings, seq, batch, ev, bev, plan, ctx
+        torch.cuda.empty_cache()
+
+    # ---- (c) real keys at N=8192 ---------------------------------------------
+    t_c0 = time.perf_counter()
+    n = golden.BGV_N
+    parms = EncryptionParameters(SchemeType.BGV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_plain_modulus(PlainModulus.batching(n, golden.BFV_PLAIN_BITS))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, (31, 32, 33, 34, 35, 36, 37, 38)))
+    rctx = SealContext(parms, True, SecurityLevel.TC128)
+    tv = parms.plain_modulus.value
+
+    def keygen():
+        kg = KeyGenerator(rctx)
+        return kg.secret_key, kg.create_public_key(), kg.create_relin_keys(), kg.create_galois_keys_from_steps([1, 0])
+
+    with NTT.plain_on_card():
+        ref_keys = keygen()
+    sk, pk, rk, gk = keygen()
+    columns = 2 * n - 1
+    for name, got, want in (("secret key", sk.data, ref_keys[0].data), ("public key", pk.data.data, ref_keys[1].data.data),
+                            ("relin key", rk.key(2)["c0"], ref_keys[2].key(2)["c0"]),
+                            ("row Galois key", gk.key(3)["c1"], ref_keys[3].key(3)["c1"]),
+                            ("column Galois key", gk.key(columns)["c0"], ref_keys[3].key(columns)["c0"])):
+        check(torch.equal(got, want), f"BGV real keys: the {name} differs from the plain path on the card")
+    del ref_keys
+    rng = np.random.default_rng(BGV_SLOT_SEED)
+    va, vb, vc = (rng.integers(0, tv, size=n, dtype=np.uint64) for _ in range(3))
+    be = BatchEncoder(rctx)
+    enc = Encryptor(rctx, public_key=pk)
+    ca, cb, cc = (enc.encrypt(be.encode(v)) for v in (va, vb, vc))
+    dec = Decryptor(rctx, sk)
+    budget_before = dec.invariant_noise_budget(ca)
+    ev = Evaluator(rctx)
+    factors = {}
+
+    def chain():
+        x, y = ev.mod_switch_to_next(ca), ev.mod_switch_to_next(cb)
+        z = ev.relinearize(ev.multiply(x, y), rk)
+        c = ev.mod_switch_to_next(cc)
+        factors.update(x=x.correction_factor, z=z.correction_factor, c=c.correction_factor)
+        w = ev.add(z, c)
+        return ev.rotate_columns(ev.rotate_rows(w, 1, gk), gk)
+
+    out, launches = counted(chain)
+    with NTT.plain_on_card():
+        ref = chain()
+    check(torch.equal(out.data, ref.data), "BGV real keys: the chain differs from the plain path on the card")
+    f = factors["x"]
+    check(f != 1 and factors["z"] == f * f % tv and factors["c"] == f and factors["z"] != factors["c"],
+          f"BGV real keys: correction factors {factors}; expected f != 1, z = f^2, c = f")
+    # kernel A: three mod-t switches (two each) and three key switches
+    # (three each); kernel B: the relinearization and the two rotations
+    check(launches == (15, 3, 0), f"BGV real keys: the chain launched (A, B, stage) {launches}; expected (15, 3, 0)")
+    budget_after = dec.invariant_noise_budget(out)
+    check(budget_after > 0, f"BGV real keys: the noise budget is spent ({budget_after} bits)")
+    a, b, c = (v.astype(object) for v in (va, vb, vc))
+    want = ((a * b + c) % tv).astype(np.uint64)
+    half = n // 2
+    rows_rotated = np.concatenate([np.roll(want[:half], -1), np.roll(want[half:], -1)])
+    want = np.concatenate([rows_rotated[half:], rows_rotated[:half]])
+    got = be.decode(dec.decrypt(out))
+    check(got.shape == (n,) and np.array_equal(got, want),
+          "BGV real keys: the decoded chain differs from numpy's (a b + c) mod t, rows rotated and columns swapped")
+    print(f"[bgv real keys] N={n}, t={tv}: keygen (seeded BLAKE2XB; secret, public, relinearization, and Galois keys "
+          f"for rotate_rows(1) and rotate_columns) equal to the plain path on the card; three BatchEncoder vectors "
+          f"encrypted with the public key; x, y = mod_switch_to_next(enc a, enc b) (correction factor {f}), z = "
+          f"relinearize(multiply(x, y)) ({factors['z']}), w = add(z, mod_switch_to_next(enc c)) balanced to "
+          f"{out.correction_factor}, rotate_rows(1), rotate_columns (kernel A {launches[0]}, kernel B {launches[1]}) "
+          f"equal to the plain path, decrypted and decoded equal to numpy's (a b + c) mod t with rows rotated and "
+          f"columns swapped; invariant noise budget {budget_before} bits fresh, {budget_after} at the end; "
+          f"{time.perf_counter() - t_c0:.1f} s")
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1584,17 +1887,23 @@ def main():
     bfv = bfv_phase(gen)
     print(f"[bfv] phase 11 in {time.time() - t_bfv:.1f} s")
 
+    # ---- phase 12: BGV at N=8192 and N=32768 -------------------------------
+    t_bgv = time.time()
+    bgv = bgv_phase(gen)
+    print(f"[bgv] phase 12 in {time.time() - t_bgv:.1f} s")
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:227", "launches": launches["ntt"],
          "max_abs_err": max_err["ntt"], "ms": ntt_totals["ms"], "plain_ms": ntt_totals["plain_ms"],
-         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"]},
+         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"], "bgv": bgv["ntt"]},
         {"name": "switch_key", "route": "cuda", "source": "seal_tpu_torch/csrc/switch_key.cu",
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
          "max_abs_err": max(max_err["switch_key"], sk_medium["max_abs_err"]), "ms": sk_main["ms"],
          "plain_ms": sk_main["plain_ms"], "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"],
-         "library_ms": None, "n32768": sk_medium, "linear_layer": linear, "bfv": bfv["switch_key"]},
+         "library_ms": None, "n32768": sk_medium, "linear_layer": linear, "bfv": bfv["switch_key"],
+         "bgv": bgv["switch_key"]},
         {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
@@ -1614,7 +1923,10 @@ def main():
           f"plain version, its bound, its launches in the counted sequential run, and staged_ms, the device time "
           f"of the staged key switch it replaces (every kernel summed); the bfv objects of kernels A and B: phase "
           f"11's calls of one BFV request at N=8192 and N=32768 (A: its four transforms summed; B: one call, no "
-          f"diagonal), their launches per request and per batch")
+          f"diagonal), their launches per request and per batch; the bgv objects: phase 12's calls of one BGV "
+          f"request at both sizes (A: its eight transforms summed; B: its two calls with the diagonal), their "
+          f"launches per request and per batch, and the profiler's device time of each kernel per request in the "
+          f"sequential and the batched run")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,11 @@ them, with the per-level device constants they read
 device; the limb range [lo, hi) it is given lets a rank of a mesh run it on
 its own limbs.  ``evaluator.py`` runs them on whole ciphertexts, the mesh
 bodies (``parallel/sharded.py``) on every rank's shard.  The key switch
-serves CKKS on NTT-form data and BFV on coefficient-form data; the plan
-carries the scheme's branch (``seal_tpu/evaluator.py:553-557, 664-698``),
-and the BFV multiply's BEHZ body is ``bfv_bodies.py``.
+serves CKKS and BGV on NTT-form data and BFV on coefficient-form data; the
+plan carries the scheme's branch (``seal_tpu/evaluator.py:553-557,
+641-698``): BGV's tail makes the special prime's share divisible by it
+with a correction that is 0 mod t, where CKKS and BFV round.  The BFV
+multiply's BEHZ body is ``bfv_bodies.py``.
 
 On the card the NTT sites and the contraction launch the hand-written
 kernels (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois
@@ -35,8 +37,9 @@ from .ops.rns import _c, _cshoup, _ratio, slice_limbs, take_limbs
 class KeySwitchPlan:
     """Device constants of the key switch at one level
     (``seal_tpu/evaluator.py:541-698``), built once per level and device.
-    ``ntt_form`` is the scheme's branch: CKKS switches NTT-form polys, BFV
-    coefficient-form ones.
+    ``ntt_form`` is the scheme's branch: CKKS and BGV switch NTT-form polys,
+    BFV coefficient-form ones; ``bgv`` holds BGV's tail constants (None for
+    the other schemes).
 
     A rank of a mesh that holds limbs [lo, hi) of the level reads the rows
     [lo, hi) of the per-limb constants and the bundles of :meth:`level` and
@@ -54,7 +57,7 @@ class KeySwitchPlan:
         sel_idx = list(range(D)) + [k_key - 1]   # output limb -> key modulus
         sel_vals = [key_moduli[i] for i in sel_idx]
         self.D = D
-        self.ntt_form = cd.parms.scheme == SchemeType.CKKS
+        self.ntt_form = cd.parms.scheme in (SchemeType.CKKS, SchemeType.BGV)
         self.key_columns = torch.tensor(sel_idx, device=dev)
         self.sel_tables = take_limbs(key_tables, sel_idx)
         self.need_reduce = torch.tensor([[qj > qi for qi in sel_vals] for qj in qv], device=dev)
@@ -74,6 +77,7 @@ class KeySwitchPlan:
         # the CKKS forward NTT, below 2q_i after the BFV inverse NTT
         self.lazy_q = _c([qi << (2 if self.ntt_form else 1) for qi in qv], dev)
         self.ms_op, self.ms_qt = _cshoup(key_cd.rns_tool.inv_q_last_mod_q[:D], qv, dev)
+        self.bgv = _BGVTail(key_cd, qk, qv, dev) if cd.parms.scheme == SchemeType.BGV else None
         self.level_tab = cd.limb_tables(dev)
         self._cut = {}
 
@@ -92,6 +96,20 @@ class KeySwitchPlan:
     def dec(self, lo: int, hi: int) -> LimbTables:
         """The key level's tables for decomposition limbs [lo, hi)."""
         return self._cut_tables("dec", self.dec_tab, lo, hi)
+
+
+class _BGVTail:
+    """The constants of BGV's key-switch tail (``seal_tpu/evaluator.py:641-662``):
+    t with its Barrett ratio, the KEY level's q_k^-1 mod t as a Shoup pair
+    (None when it is 1), and q_k mod q_i as Shoup pairs."""
+
+    def __init__(self, key_cd: ContextData, qk: int, qv, dev):
+        tv = key_cd.parms.plain_modulus.value
+        inv_qk_t = key_cd.rns_tool.inv_q_last_mod_t
+        self.t = _c([tv], dev)
+        self.t_ratio_hi = _ratio([tv], dev)[1]
+        self.inv_qk_t = _cshoup([inv_qk_t], [tv], dev) if inv_qk_t != 1 else None
+        self.qk_op, self.qk_qt = _cshoup([qk % qi for qi in qv], qv, dev)
 
 
 def convolve(d1: torch.Tensor, d2: torch.Tensor, t) -> torch.Tensor:
@@ -141,16 +159,30 @@ def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tens
                     lo: int, hi: int) -> torch.Tensor:
     """Switch the special prime away and add into the ciphertext
     (evaluator.cpp:2806-2865), on limbs [lo, hi), in the scheme's form:
-    CKKS brings the rounding term into the NTT domain, BFV takes the sum
-    out of it.  ``prod`` is the whole
-    sum (..., 2, Rn, n), ``ct_data`` (..., size, hi - lo, n) those limbs
-    of the ciphertext.  With size 1 the ciphertext's c1 is zero, as after
+    CKKS and BGV bring their correction term into the NTT domain, BFV takes
+    the sum out of it.  ``prod`` is the whole sum (..., 2, Rn, n),
+    ``ct_data`` (..., size, hi - lo, n) those limbs of the ciphertext.  With size 1 the ciphertext's c1 is zero, as after
     a Galois permutation whose c1 was switched away: the output's c1 is
     the switched pair's alone."""
     D = plan.D
     dq = plan.dq[lo:hi]
     t_last = prod[..., D:, :].contiguous()                              # (..., 2, 1, n) NTT mod qk
     rest = prod[..., lo:hi, :]                                           # (..., 2, hi-lo, n) NTT mod q_i
+    if plan.bgv is not None:
+        new = _bgv_tail(plan, t_last, rest, lo, hi)
+    else:
+        new = _rounding_tail(plan, t_last, rest, lo, hi)
+    if ct_data.shape[-3] == 1:
+        return torch.cat([U.add_mod(new[..., :1, :, :], ct_data, dq), new[..., 1:, :, :]], dim=-3)
+    out = ct_data.clone()
+    out[..., :2, :, :] = U.add_mod(new, ct_data[..., :2, :, :], dq)
+    return out
+
+
+def _rounding_tail(plan: KeySwitchPlan, t_last: torch.Tensor, rest: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """CKKS's and BFV's (evaluator.cpp:2806-2865): subtract the special
+    prime's share rounded, times q_k^-1 mod q_i; (..., 2, hi - lo, n)."""
+    dq = plan.dq[lo:hi]
     t_last_c = NTT.inverse(t_last, plan.last_tab, lazy=True)            # < 2qk
     t_last_c = U.barrett_reduce_64(t_last_c + plan.qk_half, plan.qk, plan.qk_ratio_hi)
     red = U.barrett_reduce_64(t_last_c, dq, plan.dq_ratio_hi[lo:hi])
@@ -159,13 +191,24 @@ def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tens
         t_ntt = NTT.forward(t_ntt, plan.dec(lo, hi), lazy=True)         # < 4q_i
     else:
         rest = NTT.inverse(rest.contiguous(), plan.dec(lo, hi), lazy=True)   # < 2q_i
-    new = U.mul_mod_shoup(rest + plan.lazy_q[lo:hi] - t_ntt, plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
+    return U.mul_mod_shoup(rest + plan.lazy_q[lo:hi] - t_ntt, plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
 
-    if ct_data.shape[-3] == 1:
-        return torch.cat([U.add_mod(new[..., :1, :, :], ct_data, dq), new[..., 1:, :, :]], dim=-3)
-    out = ct_data.clone()
-    out[..., :2, :, :] = U.add_mod(new, ct_data[..., :2, :, :], dq)
-    return out
+
+def _bgv_tail(plan: KeySwitchPlan, t_last: torch.Tensor, rest: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """BGV's (``seal_tpu/evaluator.py:641-662``): with c the special prime's
+    share in [0, q_k), subtract delta = c + q_k ((-c q_k^-1) mod t), which
+    is 0 mod t and c mod q_k, then multiply by q_k^-1 mod q_i;
+    (..., 2, hi - lo, n)."""
+    b = plan.bgv
+    dq, ratio_hi = plan.dq[lo:hi], plan.dq_ratio_hi[lo:hi]
+    # reduced, not lazy: c mod t must be taken of c in [0, q_k)
+    c = NTT.inverse(t_last, plan.last_tab)
+    kk = U.neg_mod(U.barrett_reduce_64(c, b.t, b.t_ratio_hi), b.t)
+    if b.inv_qk_t is not None:
+        kk = U.mul_mod_shoup(kk, *b.inv_qk_t, b.t)
+    delta = U.mul_mod_shoup(U.barrett_reduce_64(kk, dq, ratio_hi), b.qk_op[lo:hi], b.qk_qt[lo:hi], dq)
+    delta = NTT.forward(U.add_mod(delta, U.barrett_reduce_64(c, dq, ratio_hi), dq), plan.dec(lo, hi))
+    return U.mul_mod_shoup(U.sub_mod(rest, delta, dq), plan.ms_op[lo:hi], plan.ms_qt[lo:hi], dq)
 
 
 def galois(plan: KeySwitchPlan, data: torch.Tensor, tables, key_c0: torch.Tensor,
@@ -173,8 +216,8 @@ def galois(plan: KeySwitchPlan, data: torch.Tensor, tables, key_c0: torch.Tensor
     """The Galois automorphism of (..., 2, k, n) data and the key switch of
     its permuted c1 (evaluator.cpp:2384-2470): both polys are permuted by
     one gather with the element's index tensor on the data's device, the
-    NTT-domain ``(table,)`` for CKKS or the coefficient ``(source, negate)``
-    pair for BFV (``GaloisTool.ntt_index`` / ``coeff_index``), the key
+    NTT-domain ``(table,)`` for CKKS and BGV or the coefficient ``(source,
+    negate)`` pair for BFV (``GaloisTool.ntt_index`` / ``coeff_index``), the key
     switch contracts the permuted c1 with the key's first D rows, and the
     tail adds the result into (permuted c0, 0).  With a leading batch axis
     kernel B takes the batch on its grid, one launch for all of it."""

@@ -40,8 +40,10 @@ def ciphertext_from_numpy(data: np.ndarray, parms_id: ParmsId, is_ntt_form: bool
                       float(scale), int(correction_factor))
 
 
-def ciphertext_to_numpy(ct: Ciphertext) -> Tuple[np.ndarray, ParmsId, bool, float]:
-    return u64_to_numpy(ct.data), ct.parms_id, ct.is_ntt_form, ct.scale
+def ciphertext_to_numpy(ct: Ciphertext) -> Tuple[np.ndarray, ParmsId, bool, float, int]:
+    """The inverse of :func:`ciphertext_from_numpy`: (data, parms_id,
+    is_ntt_form, scale, correction_factor)."""
+    return u64_to_numpy(ct.data), ct.parms_id, ct.is_ntt_form, ct.scale, ct.correction_factor
 
 
 KeyList = List[Optional[Tuple[np.ndarray, np.ndarray]]]

@@ -3,12 +3,12 @@ then the scheme's decoding tail.
 
 Port of ``seal_tpu/decryptor.py`` (counterpart of ``decryptor.{h,cpp}``):
 c0 + c1 s + c2 s^2 + ... (``decryptor.cpp:320-407``), in the NTT domain for
-CKKS (returned as an NTT-form plaintext) and through it for BFV's
-coefficient-form ciphertexts, whose phase goes through the {t, gamma}
+CKKS (returned as an NTT-form plaintext) and BGV, and through it for BFV's
+coefficient-form ciphertexts.  BFV's phase goes through the {t, gamma}
 scale-and-round (``ops/rns.decrypt_scale_and_round``) to a coefficient
-plaintext.  ``invariant_noise_budget`` (``decryptor.cpp:409-486``) is BFV's;
-BGV's decoding tail and its half of the noise budget raise
-``NotImplementedError`` naming its ROADMAP.md item.
+plaintext; BGV's is inverse-transformed, converted exactly to t
+(``ops/rns.decrypt_modt``) and divided by the correction factor mod t.
+``invariant_noise_budget`` (``decryptor.cpp:409-486``) serves BFV and BGV.
 """
 
 from __future__ import annotations
@@ -18,14 +18,22 @@ from typing import List
 import numpy as np
 import torch
 
+from . import numth
 from .context import SealContext
 from .convert import u64_to_numpy
 from .data import Ciphertext, Plaintext, SecretKey
-from .params import SchemeType, not_ported
+from .params import SchemeType
 from .ops import ntt as NTT
 from .ops import rns as R
 from .ops import u64 as U
 from .ops.rns import _cshoup
+
+
+def _trimmed(coeffs: np.ndarray) -> Plaintext:
+    """A coefficient plaintext of ``coeffs`` up to the last nonzero one (at
+    least one coefficient)."""
+    nonzero = np.nonzero(coeffs)[0]
+    return Plaintext.from_coeffs(coeffs[: int(nonzero[-1]) + 1 if len(nonzero) else 1])
 
 
 class Decryptor:
@@ -65,8 +73,10 @@ class Decryptor:
         scheme = self.context.first_context_data().parms.scheme
         if scheme == SchemeType.BFV:
             return self._bfv_decrypt(ct)
+        if scheme == SchemeType.BGV:
+            return self._bgv_decrypt(ct)
         if scheme != SchemeType.CKKS:
-            raise not_ported(scheme)
+            raise ValueError("unsupported scheme")
         if not ct.is_ntt_form:
             raise ValueError("encrypted must be in NTT form")
         p = Plaintext()
@@ -80,25 +90,43 @@ class Decryptor:
             raise ValueError("encrypted cannot be in NTT form")
         phase = self._phase(ct)
         cd = self.context.get_context_data(ct.parms_id)
-        coeffs = u64_to_numpy(R.decrypt_scale_and_round(phase, cd.rns_tool))[0]
-        nonzero = np.nonzero(coeffs)[0]
-        return Plaintext.from_coeffs(coeffs[: int(nonzero[-1]) + 1 if len(nonzero) else 1])
+        return _trimmed(u64_to_numpy(R.decrypt_scale_and_round(phase, cd.rns_tool))[0])
+
+    def _bgv_decrypt(self, ct: Ciphertext) -> Plaintext:
+        if not ct.is_ntt_form:
+            raise ValueError("encrypted must be in NTT form")
+        cd = self.context.get_context_data(ct.parms_id)
+        phase = NTT.inverse(self._phase(ct), cd.limb_tables())
+        coeffs = u64_to_numpy(R.decrypt_modt(phase, cd.rns_tool))[0]
+        tv = cd.parms.plain_modulus.value
+        if ct.correction_factor != 1:
+            fix = numth.invert_mod(ct.correction_factor, tv)
+            if tv.bit_length() + fix.bit_length() <= 64:
+                coeffs = coeffs * np.uint64(fix) % np.uint64(tv)
+            else:
+                # the product could pass 2^64: Python ints
+                coeffs = np.array([int(c) * fix % tv for c in coeffs], dtype=np.uint64)
+        return _trimmed(coeffs)
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """Remaining noise budget in bits (decryptor.cpp:409-486): the
-        centered infinity norm of t times the phase, composed on the host."""
+        centered infinity norm of the phase in coefficient form (BFV's times
+        t), composed on the host."""
         scheme = self.context.key_context_data().parms.scheme
         if scheme not in (SchemeType.BFV, SchemeType.BGV):
             raise ValueError("unsupported scheme")
-        if scheme == SchemeType.BGV:
-            raise not_ported(scheme)
-        if ct.is_ntt_form:
+        if scheme == SchemeType.BFV and ct.is_ntt_form:
             raise ValueError("BFV encrypted cannot be in NTT form")
+        if scheme == SchemeType.BGV and not ct.is_ntt_form:
+            raise ValueError("BGV encrypted must be in NTT form")
         noise = self._phase(ct)
         cd = self.context.get_context_data(ct.parms_id)
-        qv = cd.coeff_modulus_values
-        tv = cd.parms.plain_modulus.value
-        noise = U.mul_mod_shoup(noise, *_cshoup([tv % q for q in qv], qv, noise.device), cd.limb_tables().q)
+        if scheme == SchemeType.BGV:
+            noise = NTT.inverse(noise, cd.limb_tables())
+        else:
+            qv = cd.coeff_modulus_values
+            tv = cd.parms.plain_modulus.value
+            noise = U.mul_mod_shoup(noise, *_cshoup([tv % q for q in qv], qv, noise.device), cd.limb_tables().q)
         q_total = cd.total_coeff_modulus
         half = q_total >> 1
         norm = max((q_total - v if v > half else v) for v in cd.base_q.compose_array(u64_to_numpy(noise)))

@@ -1,5 +1,5 @@
-"""Encryptor: public- and secret-key encryption for BFV and CKKS, and the
-plaintext paths' helpers.
+"""Encryptor: public- and secret-key encryption for BFV, CKKS and BGV, and
+the plaintext paths' helpers.
 
 Port of ``seal_tpu/encryptor.py`` (counterpart of ``encryptor.{h,cpp}``):
 CKKS adds the NTT-form plaintext into c0 of an NTT-form encryption of zero
@@ -7,9 +7,10 @@ at the plaintext's level; BFV adds round(Delta * m), Delta = floor(q/t),
 into c0 of a coefficient-form encryption of zero at the first level (the
 scaling variant, ``scalingvariant.cpp:69-161``,
 :func:`multiply_add_plain_with_scaling_variant`, whose term BFV's
-add_plain and sub_plain share).  :func:`bgv_lift_plain` lifts a coefficient plaintext
-into base q in NTT form, for the evaluator's plaintext paths.  Encrypting
-a BGV plaintext raises ``NotImplementedError`` naming its ROADMAP.md item.
+add_plain and sub_plain share); BGV adds the coefficient plaintext, lifted
+into base q in NTT form (:func:`bgv_lift_plain`, which the evaluator's
+plaintext paths share), into c0 of an NTT-form encryption of zero at the
+first level.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from .context import ContextData, SealContext
 from .data import Ciphertext, Plaintext, PublicKey, SecretKey
 from .ntt_tables import u64_tensor
-from .params import ParmsId, SchemeType, not_ported
+from .params import ParmsId, SchemeType
 from .ops import ntt as NTT
 from .ops import u64 as U
 from .ops.rns import _cshoup
@@ -92,9 +93,6 @@ class Encryptor:
             raise ValueError("encryption parameters are not set correctly")
         if public_key is None and secret_key is None:
             raise ValueError("at least one of public/secret key must be given")
-        scheme = context.key_context_data().parms.scheme
-        if scheme == SchemeType.BGV:
-            raise not_ported(scheme)
         self.context = context
         self._public_key = public_key
         self._secret_key = secret_key
@@ -112,7 +110,7 @@ class Encryptor:
         cd = self.context.get_context_data(parms_id)
         if cd is None:
             raise ValueError("parms_id is not valid for encryption parameters")
-        is_ntt_form = cd.parms.scheme == SchemeType.CKKS
+        is_ntt_form = cd.parms.scheme in (SchemeType.CKKS, SchemeType.BGV)
         if not is_asymmetric:
             if self._secret_key is None:
                 raise ValueError("secret key is not set")
@@ -139,12 +137,17 @@ class Encryptor:
         return self._encrypt_internal(plain, is_asymmetric=False, save_seed=save_seed)
 
     def _encrypt_internal(self, plain: Plaintext, is_asymmetric: bool, save_seed: bool) -> Ciphertext:
-        if self.context.key_context_data().parms.scheme == SchemeType.BFV:
+        scheme = self.context.key_context_data().parms.scheme
+        if scheme in (SchemeType.BFV, SchemeType.BGV):
             if plain.is_ntt_form:
                 raise ValueError("plain cannot be in NTT form")
             ct = self._encrypt_zero_internal(self.context.first_parms_id, is_asymmetric, save_seed)
+            cd = self.context.first_context_data()
             data = ct.data.clone()
-            data[0] = multiply_add_plain_with_scaling_variant(plain, self.context.first_context_data(), ct.data[0])
+            if scheme == SchemeType.BFV:
+                data[0] = multiply_add_plain_with_scaling_variant(plain, cd, ct.data[0])
+            else:
+                data[0] = U.add_mod(ct.data[0], bgv_lift_plain(plain, cd), cd.limb_tables().q)
             ct.data = data
             return ct
         if not plain.is_ntt_form:

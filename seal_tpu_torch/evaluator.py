@@ -1,31 +1,33 @@
-"""Evaluator: the BFV and CKKS homomorphic op surface.
+"""Evaluator: the BFV, CKKS and BGV homomorphic op surface.
 
-Port of ``seal_tpu/evaluator.py`` (counterpart of ``evaluator.{h,cpp}``)
-for BFV and CKKS: negate, add, sub, add_many, multiply, square,
-multiply_many and exponentiate (BFV), relinearize, the modulus switches
-(mod_switch_to_next/to: BFV's divide-and-round, CKKS's limb drop;
-rescale_to_next/to, mod_reduce_to_next/to, mod_switch_plain_to), the
-plaintext ops (add_plain, sub_plain: BFV's scaling variant; multiply_plain
-on all four of its branches), the NTT transforms, and the Galois ops
-(apply_galois on either form, rotate_rows/rotate_columns for BFV,
-rotate_vector/complex_conjugate for CKKS).  Ring arithmetic runs on the
-context's device; metadata (levels, scales) is tracked on the host.
+Port of ``seal_tpu/evaluator.py`` (counterpart of ``evaluator.{h,cpp}``):
+negate, add, sub, add_many (BGV balancing the operands' correction
+factors), multiply, square, multiply_many and exponentiate (BFV and BGV),
+relinearize, the modulus switches (mod_switch_to_next/to: BFV's
+divide-and-round, BGV's mod-t switch, CKKS's limb drop; rescale_to_next/to,
+mod_reduce_to_next/to, mod_switch_plain_to), the plaintext ops (add_plain,
+sub_plain: BFV's scaling variant, BGV's lift of the plaintext times the
+correction factor; multiply_plain on all four of its branches), the NTT
+transforms, and the Galois ops (apply_galois on either form,
+rotate_rows/rotate_columns for BFV and BGV, rotate_vector/complex_conjugate
+for CKKS).  Ring arithmetic runs on the context's device; metadata (levels,
+scales, BGV correction factors) is tracked on the host.
 Ciphertexts are immutable: every op returns a new Ciphertext.  There is no
 jit cache: the ops run eagerly, and the constants each level needs are
 built once and kept in ``self._plans``.
 
 The ring bodies live in ``ckks_bodies.py`` (the convolution, the key
-switch of either form, the Galois body) and ``bfv_bodies.py`` (the BEHZ
-multiply), their mesh versions in ``parallel/sharded.py``.  On the card
+switch of either form with its CKKS, BFV and BGV tails, the Galois body)
+and ``bfv_bodies.py`` (the BEHZ multiply), their mesh versions in
+``parallel/sharded.py``.  On the card
 every NTT and the key-switch contraction launch the hand-written kernels
 (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois permutation
 is one ``index_select``, and the rest is elementwise mod-q arithmetic in
 plain PyTorch.  Inside ``ops.ntt.plain_on_card()`` the plain PyTorch
 versions run on the card as well, to check the kernels.
 
-BGV needs its scheme's arithmetic (correction factors, the mod-t switch),
-which is not ported yet: its branches raise ``NotImplementedError`` naming
-ROADMAP.md item 10.  BFV data sharded over a mesh raises it naming item 13.
+BFV and BGV data sharded over a mesh raise ``NotImplementedError`` naming
+ROADMAP.md item 13.
 """
 
 from __future__ import annotations
@@ -42,14 +44,14 @@ from .ckks_bodies import KeySwitchPlan, convolve, galois, key_switch_contract, k
 from .context import ContextData, SealContext
 from .data import Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, RelinKeys
 from .encryptor import bgv_lift_plain, scaling_variant_term
-from .params import ParmsId, SchemeType, not_ported
+from .params import ParmsId, SchemeType
 from .parallel import sharded
 from .parallel.mesh import ShardedTensor, shard, shard_kswitch_key
 from .ops import ntt as NTT
 from .ops import poly as P
 from .ops import rns as R
 from .ops import u64 as U
-from .ops.rns import _c
+from .ops.rns import _c, _cshoup
 
 
 def are_same_scale(scale1: float, scale2: float) -> bool:
@@ -68,6 +70,53 @@ def add_sub_padded(x: torch.Tensor, y: torch.Tensor, q: torch.Tensor, is_add: bo
         zeros = lambda a, p: a.new_zeros(a.shape[:-3] + (p,) + a.shape[-2:])
         x, y = (x, torch.cat([y, zeros(y, pad)], dim=-3)) if pad > 0 else (torch.cat([x, zeros(x, -pad)], dim=-3), y)
     return U.add_mod(x, y, q) if is_add else U.sub_mod(x, y, q)
+
+
+def _balance_correction_factors(factor1: int, factor2: int, t: int):
+    """BGV correction-factor balancing via extended Euclid minimizing the
+    lifted |e1| + |e2| (evaluator.cpp:56-118).  Returns (f, e1, e2)."""
+    half_t = t // 2
+
+    def sum_abs(x, y):
+        xb = x - t if x > half_t else x
+        yb = y - t if y > half_t else y
+        return abs(xb) + abs(yb)
+
+    ratio = numth.invert_mod(factor1, t) * factor2 % t
+    e1, e2 = ratio, 1
+    best = sum_abs(e1, e2)
+
+    prev_a, a = t, ratio
+    prev_b, b = 0, 1
+    while a != 0:
+        q = prev_a // a
+        prev_a, a = a, prev_a - q * a
+        prev_b, b = b, prev_b - q * b
+        a_mod = a % t
+        b_mod = b % t
+        if a_mod != 0 and numth.gcd(a_mod, t) == 1:
+            new_sum = sum_abs(a_mod, b_mod)
+            if new_sum < best:
+                best = new_sum
+                e1, e2 = a_mod, b_mod
+    return e1 * factor1 % t, e1, e2
+
+
+def add_sub_body(cd: ContextData, factor1: int, factor2: int, is_add: bool):
+    """(correction factor, fn(x, y, q)) of add or sub on operands with
+    correction factors ``factor1`` and ``factor2``: BGV operands whose
+    factors differ are first multiplied by the balancing e1 and e2 mod q_i
+    (evaluator.cpp:197-216), so both carry the factor returned."""
+    if cd.parms.scheme != SchemeType.BGV or factor1 == factor2:
+        return factor1, lambda x, y, q: add_sub_padded(x, y, q, is_add)
+    f, e1, e2 = _balance_correction_factors(factor1, factor2, cd.parms.plain_modulus.value)
+    qv = cd.coeff_modulus_values
+
+    def balanced(x, y, q):
+        times = lambda d, e: U.mul_mod_shoup(d, *_cshoup([e % qi for qi in qv], qv, d.device), q)
+        return add_sub_padded(times(x, e1), times(y, e2), q, is_add)
+
+    return f, balanced
 
 
 def _is_scale_within_bounds(scale: float, cd: ContextData) -> bool:
@@ -136,8 +185,8 @@ class Evaluator:
         if ct.size < 2:
             raise ValueError("ciphertext is empty or invalid")
         if isinstance(ct.data, ShardedTensor):
-            if cd.parms.scheme == SchemeType.BFV:
-                raise sharded.bfv_not_ported()
+            if cd.parms.scheme in (SchemeType.BFV, SchemeType.BGV):
+                raise sharded.mesh_not_ported(cd.parms.scheme)
         elif ct.data.device != self.context.device:
             raise ValueError(f"ciphertext lies on {ct.data.device}, the context on {self.context.device}")
         return cd
@@ -189,10 +238,10 @@ class Evaluator:
     def _add_sub(self, ct1: Ciphertext, ct2: Ciphertext, is_add: bool) -> Ciphertext:
         self._check_same(ct1, ct2)
         cd = self._cd(ct1)
-        if cd.parms.scheme == SchemeType.BGV and ct1.correction_factor != ct2.correction_factor:
-            raise not_ported(SchemeType.BGV)     # correction-factor balancing
+        factor, body = add_sub_body(cd, ct1.correction_factor, ct2.correction_factor, is_add)
         out = ct1.copy()
-        out.data = self._elementwise(cd, ct1.data, lambda x, y, q: add_sub_padded(x, y, q, is_add), ct2.data)
+        out.data = self._elementwise(cd, ct1.data, body, ct2.data)
+        out.correction_factor = factor
         self._check_transparent(out)
         return out
 
@@ -219,10 +268,10 @@ class Evaluator:
         scheme = self.context.first_context_data().parms.scheme
         if scheme == SchemeType.BFV:
             out = self._bfv_multiply(ct1, ct2)
-        elif scheme == SchemeType.CKKS:
-            out = self._ckks_multiply(ct1, ct2)
+        elif scheme in (SchemeType.CKKS, SchemeType.BGV):
+            out = self._ntt_multiply(ct1, ct2)
         else:
-            raise not_ported(scheme)
+            raise ValueError("unsupported scheme")
         self._check_transparent(out)
         return out
 
@@ -249,7 +298,10 @@ class Evaluator:
         out.data = bfv_bodies.multiply(ct1.data, ct2.data, cd)
         return out
 
-    def _ckks_multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+    def _ntt_multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        """CKKS's and BGV's multiply: the NTT-domain convolution, with the
+        product of the scales (CKKS) or of the correction factors mod t
+        (BGV)."""
         if not (ct1.is_ntt_form and ct2.is_ntt_form):
             raise ValueError("encrypted1 and encrypted2 must be in NTT form")
         cd = self._cd(ct1)
@@ -259,6 +311,9 @@ class Evaluator:
             out.data = sharded.multiply(self._plan, cd, ct1.data, ct2.data)
         else:
             out.data = convolve(ct1.data, ct2.data, cd.limb_tables())
+        if cd.parms.scheme == SchemeType.BGV:
+            out.correction_factor = ct1.correction_factor * ct2.correction_factor % cd.parms.plain_modulus.value
+            return out
         out.scale = ct1.scale * ct2.scale
         if not _is_scale_within_bounds(out.scale, cd):
             raise ValueError("scale out of bounds")
@@ -299,8 +354,6 @@ class Evaluator:
 
     def _switch_key_body(self, cd: ContextData, ct_size: int, ct_data: torch.Tensor,
                          target: torch.Tensor, key_c0: torch.Tensor, key_c1: torch.Tensor) -> torch.Tensor:
-        if cd.parms.scheme == SchemeType.BGV:
-            raise not_ported(cd.parms.scheme)
         plan = self._plan(cd)
         D = plan.D
         prod = key_switch_contract(plan, target, key_c0[:D], key_c1[:D], 0, D)  # (2, Rn, n) < q_i
@@ -331,12 +384,10 @@ class Evaluator:
     def _mod_switch_scale_to_next(self, ct: Ciphertext) -> Ciphertext:
         cd = self._cd(ct)
         scheme = cd.parms.scheme
-        if scheme == SchemeType.BGV:
-            raise not_ported(scheme)
         if scheme == SchemeType.BFV and ct.is_ntt_form:
             raise ValueError("BFV encrypted cannot be in NTT form")
-        if scheme == SchemeType.CKKS and not ct.is_ntt_form:
-            raise ValueError("CKKS encrypted must be in NTT form")
+        if scheme in (SchemeType.CKKS, SchemeType.BGV) and not ct.is_ntt_form:
+            raise ValueError(f"{scheme.name} encrypted must be in NTT form")
         next_cd = cd.next_context_data
         if next_cd is None:
             raise ValueError("end of modulus switching chain reached")
@@ -344,6 +395,10 @@ class Evaluator:
             # divide and round by q_last on the coefficients; the scale stays
             return Ciphertext(R.divide_and_round_q_last(ct.data, cd.rns_tool), next_cd.parms_id, False,
                               ct.scale, ct.correction_factor)
+        if scheme == SchemeType.BGV:
+            # both polys in one call: one launch of kernel A per transform
+            return Ciphertext(R.mod_t_and_divide_q_last_ntt(ct.data, cd.rns_tool, cd.limb_tables()),
+                              next_cd.parms_id, True, ct.scale, bgv_switched_factor(cd, ct.correction_factor))
         # both the current and the destination scale must stay normal and
         # in bounds (evaluator.cpp:1232-1238)
         if not _is_scale_within_bounds(ct.scale, cd) or not _is_scale_within_bounds(
@@ -462,9 +517,6 @@ class Evaluator:
 
     def multiply_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
         self._cd(ct)
-        scheme = self._scheme()
-        if scheme == SchemeType.BGV:
-            raise not_ported(scheme)
         if ct.is_ntt_form and plain.is_ntt_form:
             out = self._multiply_plain_ntt(ct, plain)
         elif not ct.is_ntt_form and not plain.is_ntt_form:
@@ -558,8 +610,6 @@ class Evaluator:
         key = galois_keys.key(galois_elt)
         if key is None or key["c0"].shape[0] < len(cd.parms.coeff_modulus):
             raise ValueError("key-switching keys are invalid for encryption parameters")
-        if scheme == SchemeType.BGV:
-            raise not_ported(scheme)
         out = ct.copy()
         if isinstance(ct.data, ShardedTensor):
             out.data = sharded.galois(self._plan, cd, ct.data, galois_elt, key)
@@ -607,8 +657,6 @@ def multiply_tree(ev, items, relin_keys):
     scheme = ev.context.first_context_data().parms.scheme
     if scheme not in (SchemeType.BFV, SchemeType.BGV):
         raise ValueError("unsupported scheme")
-    if scheme == SchemeType.BGV:
-        raise not_ported(scheme)
     queue = list(items)
     while len(queue) > 1:
         pairs = [ev.relinearize(ev.multiply(queue[i], queue[i + 1]), relin_keys) for i in range(0, len(queue) - 1, 2)]
@@ -616,17 +664,34 @@ def multiply_tree(ev, items, relin_keys):
     return queue[0]
 
 
+def bgv_switched_factor(cd: ContextData, factor: int) -> int:
+    """A BGV correction factor after the modulus switch from ``cd``'s level:
+    times q_last^-1 mod t at that level."""
+    return factor * cd.rns_tool.inv_q_last_mod_t % cd.parms.plain_modulus.value
+
+
 def plain_term(ct, plain: Plaintext, cd: ContextData) -> torch.Tensor:
     """The (k, n) term add_plain and sub_plain put into c0 of ``ct`` (a
     ciphertext or a batch), after the reference's checks: round(Delta m) in
-    coefficient form for BFV, the NTT-form plaintext for CKKS."""
+    coefficient form for BFV, the NTT-form plaintext for CKKS, and for BGV
+    the plaintext times ``ct``'s correction factor mod t, lifted into base q
+    in NTT form."""
     scheme = cd.parms.scheme
     if scheme == SchemeType.BFV:
         if ct.is_ntt_form or plain.is_ntt_form:
             raise ValueError("BFV operands cannot be in NTT form")
         return scaling_variant_term(plain, cd, cd.device)
+    if scheme == SchemeType.BGV:
+        if not ct.is_ntt_form:
+            raise ValueError("BGV encrypted must be in NTT form")
+        if plain.is_ntt_form:
+            raise ValueError("BGV plain cannot be in NTT form")
+        scaled = plain.copy()
+        tv = cd.parms.plain_modulus.value
+        scaled.coeff_data = (plain.coeff_data.astype(object) * ct.correction_factor % tv).astype(np.uint64)
+        return bgv_lift_plain(scaled, cd)
     if scheme != SchemeType.CKKS:
-        raise not_ported(scheme)
+        raise ValueError("unsupported scheme")
     if not ct.is_ntt_form or not plain.is_ntt_form:
         raise ValueError("CKKS operands must be in NTT form")
     if ct.parms_id != plain.parms_id:
@@ -638,10 +703,10 @@ def plain_term(ct, plain: Plaintext, cd: ContextData) -> torch.Tensor:
 
 def galois_tables(cd: ContextData, galois_elt: int, device):
     """The permutation tensors of ``ckks_bodies.galois`` for the level's
-    scheme: the NTT-domain index for CKKS, the coefficient-domain (index,
-    negate) pair for BFV."""
+    scheme: the NTT-domain index for CKKS and BGV, the coefficient-domain
+    (index, negate) pair for BFV."""
     tool = cd.galois_tool
-    if cd.parms.scheme == SchemeType.CKKS:
+    if cd.parms.scheme in (SchemeType.CKKS, SchemeType.BGV):
         return (tool.ntt_index(galois_elt, device),)
     return tool.coeff_index(galois_elt, device)
 

@@ -54,6 +54,25 @@ every setting at its default), the inputs carried across with
 ``seal_tpu.ops.u64.from_np_u64``.  ``tests/test_torch_bfv.py`` recomputes
 ``BFV_DIGEST`` from the port's plain path and both from the JAX package
 (marked ``slow``), ``chip_smoke.py`` both from the kernels on the card.
+
+``BGV_DIGEST`` and ``BGV_MEDIUM_DIGEST`` are the SHA-256 of the BGV server
+request (:func:`bgv_request`: multiply -> relinearize -> rotate_rows(1) ->
+mod_switch_to_next, output (2, k - 1, n) in NTT form) on
+:func:`bgv_context` at N=8192 and N=32768 (the chain and plain modulus of
+``BFV_CHAIN`` as a BGV context), with ``request_inputs(ctx,
+GOLDEN_REQUEST_SEED)`` read as NTT-form ciphertexts of correction factor
+1, the relinearization key ``key_inputs(ctx, GOLDEN_KEY_SEED)`` and the
+Galois key ``galois_key_inputs(ctx, BGV_GALOIS_SEED)`` of element
+``BGV_GALOIS_ELT``.  ``BGV_CORRECTION_FACTOR`` and
+``BGV_MEDIUM_CORRECTION_FACTOR`` are the output's correction factors: the
+first level's q_last^-1 mod t.  The JAX package's ``pipeline.py`` has no
+BGV request, so each digest was computed once by :func:`bgv_request` on the
+JAX package's ``Evaluator`` on the CPU (``JAX_PLATFORMS=cpu``, every
+setting at its default), the inputs carried across with
+``seal_tpu.ops.u64.from_np_u64`` into its ``Ciphertext``, ``RelinKeys``
+and ``GaloisKeys``.  ``tests/test_torch_bgv.py`` recomputes ``BGV_DIGEST``
+from the port's plain path and both from the JAX package (marked
+``slow``), ``chip_smoke.py`` both from the kernels on the card.
 """
 
 from __future__ import annotations
@@ -90,6 +109,14 @@ BFV_CHAIN = ("CoeffModulus.bfv_default(n), SecurityLevel.TC128, plain modulus Pl
              "chain expanded")
 BFV_DIGEST = "4062ed8c6578304ce3911ff1ddfd1ced83bc00394dbd2ba74f3bd0722d1987b2"
 BFV_MEDIUM_DIGEST = "ca5db221d01a3267e9311d613f70e5bece2f8341f04b59a25b86ad131bb4c0f1"
+BGV_N = 8192
+BGV_MEDIUM_N = 32768
+BGV_GALOIS_SEED = 3
+BGV_GALOIS_ELT = 3               # get_elt_from_step(1)
+BGV_DIGEST = "3000863a542e67fd5dde075e02ccbbfe3a3e23d1773357f6c92f7d42abfdecc0"
+BGV_CORRECTION_FACTOR = 366676
+BGV_MEDIUM_DIGEST = "7f4c2fb0cbea6c2403110be9dc00423e97ea217a05461cc1cf75abfe0156078c"
+BGV_MEDIUM_CORRECTION_FACTOR = 201238
 
 _GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _M1 = np.uint64(0xBF58476D1CE4E5B9)
@@ -130,6 +157,25 @@ def bfv_context(n: int, device=None) -> SealContext:
     parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
     parms.set_plain_modulus(PlainModulus.batching(n, BFV_PLAIN_BITS))
     return SealContext(parms, True, SecurityLevel.TC128, device=device)
+
+
+def bgv_context(n: int, device=None) -> SealContext:
+    """The BGV context of ``BGV_DIGEST`` (n=8192) and ``BGV_MEDIUM_DIGEST``
+    (n=32768): ``BFV_CHAIN``'s chain and plain modulus as a BGV context, the
+    repository's BGV configuration (``BASELINE.json`` configs[2])."""
+    parms = EncryptionParameters(SchemeType.BGV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_plain_modulus(PlainModulus.batching(n, BFV_PLAIN_BITS))
+    return SealContext(parms, True, SecurityLevel.TC128, device=device)
+
+
+def bgv_request(ev, ct1, ct2, relin_keys, galois_keys):
+    """multiply -> relinearize -> rotate_rows(1) -> mod_switch_to_next, the
+    BGV server request.  ``ev`` is an Evaluator or a BatchEvaluator, of
+    either package: the method names are the same."""
+    product = ev.relinearize(ev.multiply(ct1, ct2), relin_keys)
+    return ev.mod_switch_to_next(ev.rotate_rows(product, 1, galois_keys))
 
 
 def request_inputs(context: SealContext, seed: int) -> Tuple[np.ndarray, np.ndarray]:

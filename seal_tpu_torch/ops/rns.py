@@ -8,13 +8,14 @@ conversion ``fast_convert_array``; the BEHZ steps of the BFV multiply
 modulus switches ``divide_and_round_q_last`` (BFV, coefficient form) and
 ``divide_and_round_q_last_ntt`` (the CKKS rescale); BFV's decryption tail
 ``decrypt_scale_and_round``; the constant helpers ``_c`` / ``_cshoup`` /
-``_ratio``; and ``slice_limbs`` / ``take_limbs``.  Each function mirrors
-the JAX package's arithmetic step for step on int64 tensors, so the
-residues are the same bits.  The JAX package's int8 digit-plane
-contraction (``_convert_contraction_mxu``) is a TPU workaround and is not
-ported: the conversion's contraction here is plain and exact
-(:func:`_contract`).  BGV's exact conversion and mod-t switch arrive with
-BGV (ROADMAP.md queue 1, item 10).
+``_ratio``; and ``slice_limbs`` / ``take_limbs``; and BGV's three: the
+exact conversion q -> {t} ``exact_convert_array`` with its decryption tail
+``decrypt_modt``, and the mod-t modulus switch
+``mod_t_and_divide_q_last_ntt``.  Each function mirrors the JAX package's
+arithmetic step for step on int64 tensors, so the residues are the same
+bits.  The JAX package's int8 digit-plane contraction
+(``_convert_contraction_mxu``) is a TPU workaround and is not ported: the
+conversion's contraction here is plain and exact (:func:`_contract`).
 """
 
 from __future__ import annotations
@@ -103,6 +104,63 @@ def divide_and_round_q_last_ntt_limbs(x_rest: torch.Tensor, x_last: torch.Tensor
     return U.mul_mod_shoup(x_rest + c.four_q[lo:hi] - temp, c.inv_op[lo:hi], c.inv_qt[lo:hi], rest_q)
 
 
+class _ModTConstants:
+    """Device constants of one level's BGV modulus switch."""
+
+    def __init__(self, tool: HostRNSTool, device):
+        qv = tool.base_q.values
+        rest = qv[:-1]
+        t = tool.t.value
+        self.t = _c([t], device)
+        self.t_ratio_hi = _ratio([t], device)[1]
+        self.inv_q_last_t = _cshoup([tool.inv_q_last_mod_t], [t], device) if tool.inv_q_last_mod_t != 1 else None
+        self.rest_q = _c(rest, device)
+        self.rest_ratio_hi = _ratio(rest, device)[1]
+        self.q_last_op, self.q_last_qt = _cshoup([qv[-1] % qi for qi in rest], rest, device)
+        self.inv_op, self.inv_qt = _cshoup(tool.inv_q_last_mod_q, rest, device)
+
+
+def _mod_t_constants(tool: HostRNSTool, device) -> _ModTConstants:
+    key = ("mod_t", str(device))
+    if key not in tool.device_cache:
+        tool.device_cache[key] = _ModTConstants(tool, device)
+    return tool.device_cache[key]
+
+
+def mod_t_and_divide_q_last_ntt(x: torch.Tensor, tool: HostRNSTool, tables: LimbTables) -> torch.Tensor:
+    """BGV's modulus switch in the NTT domain (rns.cpp:1193-1237): make the
+    last limb's coefficients c divisible by q_last with the correction
+    delta = c + q_last ((-c q_last^-1) mod t), which is 0 mod t, then
+    divide exactly.  ``x``: (..., k, n) in NTT form over base q, every
+    leading poly in one call; returns (..., k-1, n) in [0, q_i)."""
+    k = tool.base_q.size
+    return mod_t_and_divide_q_last_ntt_limbs(x[..., : k - 1, :], x[..., k - 1:, :], 0, tool, tables)
+
+
+def mod_t_and_divide_q_last_ntt_limbs(x_rest: torch.Tensor, x_last: torch.Tensor, lo: int,
+                                      tool: HostRNSTool, tables: LimbTables) -> torch.Tensor:
+    """Limbs [lo, lo + x_rest.shape[-2]) of the BGV modulus switch, from
+    those limbs of the input and its last limb ``x_last`` (..., 1, n), as
+    :func:`divide_and_round_q_last_ntt_limbs` for the rescale.  ``tables``
+    covers base q."""
+    k = tool.base_q.size
+    hi = lo + x_rest.shape[-2]
+    c = _mod_t_constants(tool, x_rest.device)
+    rest_q, rest_ratio_hi = c.rest_q[lo:hi], c.rest_ratio_hi[lo:hi]
+
+    # reduced, not lazy: c mod t must be taken of c in [0, q_last)
+    c_last = NTT.inverse(x_last.contiguous(), slice_limbs(tables, k - 1, k))
+    neg_c_mod_t = U.neg_mod(U.barrett_reduce_64(c_last, c.t, c.t_ratio_hi), c.t)
+    if c.inv_q_last_t is not None:
+        neg_c_mod_t = U.mul_mod_shoup(neg_c_mod_t, *c.inv_q_last_t, c.t)
+    # delta_i = (neg_c_mod_t mod q_i) q_last + c mod q_i
+    delta = U.mul_mod_shoup(U.barrett_reduce_64(neg_c_mod_t, rest_q, rest_ratio_hi), c.q_last_op[lo:hi],
+                            c.q_last_qt[lo:hi], rest_q)
+    delta = U.add_mod(delta, U.barrett_reduce_64(c_last, rest_q, rest_ratio_hi), rest_q)
+    delta = NTT.forward(delta, slice_limbs(tables, lo, hi))
+    return U.mul_mod_shoup(U.sub_mod(x_rest, delta, rest_q), c.inv_op[lo:hi], c.inv_qt[lo:hi], rest_q)
+
+
 def divide_and_round_q_last(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
     """Coefficient-form divide-and-round by the last prime, BFV's modulus
     switch (``divide_and_round_q_last_inplace``, rns.cpp:789-829).
@@ -141,6 +199,9 @@ class _ConvertConstants:
                                     for b in range(4)], dtype=torch.int64, device=device)
         self.oq = _c(ob.values, device)
         self.oratio_lo, self.oratio_hi = _ratio(ob.values, device)
+        self.iratio_lo = _c(conv.iratio_lo, device)
+        self.iratio_hi = _c(conv.iratio_hi, device)
+        self.q_mod_o0 = _cshoup([conv.q_mod_obase0], ob.values[:1], device)
 
 
 def _convert_constants(conv: HostBaseConverter, device) -> _ConvertConstants:
@@ -194,6 +255,36 @@ def fast_convert_array(x: torch.Tensor, conv: HostBaseConverter) -> torch.Tensor
     the change matrix."""
     c = _convert_constants(conv, x.device)
     return _contract(U.mul_mod_shoup(x, c.inv_op, c.inv_qt, c.iq), c)
+
+
+def exact_convert_array(x: torch.Tensor, conv: HostBaseConverter) -> torch.Tensor:
+    """Exact (rounded) conversion to a one-modulus output base {t}
+    (``BaseConverter::exact_convert_array``, rns.cpp:466-541), in the JAX
+    package's 64-bit fixed point: with temp_i = x_i (Q/q_i)^-1 mod q_i, the
+    fraction temp_i / q_i is (mulhi64(temp_i, iratio_lo) + mullo64(temp_i,
+    iratio_hi)) mod 2^64; the fractions and 1/2 are summed mod 2^64, and the
+    carries out of the sum count v = round(sum temp_i / q_i).  The result is
+    (sum_i temp_i (Q/q_i)) mod t - v (Q mod t).  ``x``: (..., k_in, n);
+    returns (..., 1, n) in [0, t)."""
+    if conv.obase.size != 1:
+        raise ValueError("exact_convert_array requires obase of size 1")
+    c = _convert_constants(conv, x.device)
+    temp = U.mul_mod_shoup(x, c.inv_op, c.inv_qt, c.iq)
+    frac = U.add64(U.mulhi64(temp, c.iratio_lo), U.mullo64(temp, c.iratio_hi))
+    acc = torch.zeros_like(temp[..., :1, :])
+    carries = torch.zeros_like(acc)
+    for i in range(temp.shape[-2]):
+        acc, carry = U.add64_carry(acc, frac[..., i:i + 1, :])
+        carries = carries + carry
+    _, carry = U.add64_carry(acc, torch.full_like(acc, -(1 << 63)))     # + 1/2: bit 63
+    v_q_mod_t = U.mul_mod_shoup(carries + carry, *c.q_mod_o0, c.oq)
+    return U.sub_mod(_contract(temp, c), v_q_mod_t, c.oq)
+
+
+def decrypt_modt(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """BGV's decryption tail: the exact conversion q -> {t} of the phase's
+    coefficients (..., k, n); returns (..., 1, n) in [0, t)."""
+    return exact_convert_array(x, tool.conv_q_to_t)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ axes and the RNS limbs over the ``limb`` axis, and each rank runs the same
 bodies on its own ciphertexts and limbs (``parallel/sharded.py``; kernel B
 takes the batch on its grid's second axis).
 
-Every result equals the single-device evaluator's bit for bit.  BFV runs
-on one device (the BEHZ multiply of ``bfv_bodies.py``, the key switch on
-coefficient form); BFV data on a mesh raises ``NotImplementedError``
-naming ROADMAP.md item 13, and BGV item 10.
+Every result equals the single-device evaluator's bit for bit.  BFV and
+BGV run on one device (BFV: the BEHZ multiply of ``bfv_bodies.py``, the key
+switch on coefficient form; BGV: the NTT-domain convolution, the key switch
+with BGV's tail, the mod-t switch, one correction factor per batch); their
+data on a mesh raises ``NotImplementedError`` naming ROADMAP.md item 13.
 """
 
 from __future__ import annotations
@@ -26,13 +27,13 @@ from .. import bfv_bodies
 from ..ckks_bodies import convolve, galois
 from ..context import ContextData, SealContext
 from ..data import Ciphertext, GaloisKeys, Plaintext, RelinKeys
-from ..evaluator import (Evaluator, _is_scale_within_bounds, add_sub_padded, add_sub_plain, are_same_scale,
-                         drop_limbs, galois_tables, multiply_plain_normal_body, multiply_tree, plain_term,
-                         rotate_by_steps)
+from ..evaluator import (Evaluator, _is_scale_within_bounds, add_sub_body, add_sub_plain, are_same_scale,
+                         bgv_switched_factor, drop_limbs, galois_tables, multiply_plain_normal_body, multiply_tree,
+                         plain_term, rotate_by_steps)
 from ..ops import ntt as NTT
 from ..ops import rns as R
 from ..ops import u64 as U
-from ..params import ParmsId, SchemeType, not_ported
+from ..params import ParmsId, SchemeType
 from . import sharded
 from .mesh import HEMesh, ShardedTensor, shard_batch
 
@@ -97,19 +98,18 @@ class BatchEvaluator:
         cd = self.context.get_context_data(batch.parms_id)
         if cd is None:
             raise ValueError("ciphertexts are not valid for encryption parameters")
-        if cd.parms.scheme == SchemeType.BGV:
-            raise not_ported(cd.parms.scheme)
-        if cd.parms.scheme == SchemeType.BFV and isinstance(batch.data, ShardedTensor):
-            raise sharded.bfv_not_ported()
+        if cd.parms.scheme in (SchemeType.BFV, SchemeType.BGV) and isinstance(batch.data, ShardedTensor):
+            raise sharded.mesh_not_ported(cd.parms.scheme)
         return cd
 
     @staticmethod
     def _check_form(batch: CiphertextBatch, cd: ContextData) -> None:
         """The form a key switch needs (switch_key_inplace, evaluator.cpp:2600-2611)."""
-        if cd.parms.scheme == SchemeType.BFV and batch.is_ntt_form:
+        scheme = cd.parms.scheme
+        if scheme == SchemeType.BFV and batch.is_ntt_form:
             raise ValueError("BFV encrypted cannot be in NTT form")
-        if cd.parms.scheme == SchemeType.CKKS and not batch.is_ntt_form:
-            raise ValueError("CKKS encrypted must be in NTT form")
+        if scheme in (SchemeType.CKKS, SchemeType.BGV) and not batch.is_ntt_form:
+            raise ValueError(f"{scheme.name} encrypted must be in NTT form")
 
     def _check_key(self, keys) -> None:
         """Key validity rails mirroring Evaluator._switch_key / relinearize
@@ -134,7 +134,10 @@ class BatchEvaluator:
                 raise ValueError("BFV operands cannot be in NTT form")
             return self._like(b1, bfv_bodies.multiply(b1.data, b2.data, cd))
         if not (b1.is_ntt_form and b2.is_ntt_form):
-            raise ValueError("CKKS operands must be in NTT form")
+            raise ValueError(f"{cd.parms.scheme.name} operands must be in NTT form")
+        if cd.parms.scheme == SchemeType.BGV:
+            factor = b1.correction_factor * b2.correction_factor % cd.parms.plain_modulus.value
+            return self._like(b1, convolve(b1.data, b2.data, cd.limb_tables()), correction_factor=factor)
         out_scale = b1.scale * b2.scale
         if not _is_scale_within_bounds(out_scale, cd):
             raise ValueError("scale out of bounds")
@@ -191,8 +194,8 @@ class BatchEvaluator:
         if not are_same_scale(b1.scale, b2.scale):
             raise ValueError("scale mismatch")
         cd = self._cd(b1)
-        data = self.ev._elementwise(cd, b1.data, lambda x, y, q: add_sub_padded(x, y, q, is_add), b2.data)
-        return CiphertextBatch(data, b1.parms_id, b1.is_ntt_form, b1.scale, b1.correction_factor)
+        factor, body = add_sub_body(cd, b1.correction_factor, b2.correction_factor, is_add)
+        return self._like(b1, self.ev._elementwise(cd, b1.data, body, b2.data), correction_factor=factor)
 
     def negate(self, batch: CiphertextBatch) -> CiphertextBatch:
         cd = self._cd(batch)
@@ -208,15 +211,20 @@ class BatchEvaluator:
     # -- level management --------------------------------------------------
     def mod_switch_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
         """The evaluator's mod_switch_to_next over the batch: CKKS drops the
-        last limb, BFV divides and rounds by it on the coefficients."""
+        last limb, BFV divides and rounds by it on the coefficients, BGV
+        switches it away mod t in the NTT domain (every ciphertext and poly
+        of the batch in one call)."""
         cd = self._cd(batch)
         if cd.parms.scheme == SchemeType.CKKS:
             return self.mod_reduce_to_next(batch)
         next_cd = cd.next_context_data
         if next_cd is None:
             raise ValueError("end of modulus switching chain reached")
-        if batch.is_ntt_form:
-            raise ValueError("BFV encrypted cannot be in NTT form")
+        self._check_form(batch, cd)
+        if cd.parms.scheme == SchemeType.BGV:
+            return self._like(batch, R.mod_t_and_divide_q_last_ntt(batch.data, cd.rns_tool, cd.limb_tables()),
+                              parms_id=next_cd.parms_id,
+                              correction_factor=bgv_switched_factor(cd, batch.correction_factor))
         return self._like(batch, R.divide_and_round_q_last(batch.data, cd.rns_tool), parms_id=next_cd.parms_id)
 
     def mod_reduce_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
@@ -329,5 +337,5 @@ class BatchEvaluator:
 
     def multiply_many(self, batches: Sequence[CiphertextBatch], relin_keys: RelinKeys) -> CiphertextBatch:
         """Binary-tree product over batches, relinearizing after each
-        multiply (BFV only; evaluator.cpp:1649-1724)."""
+        multiply (BFV and BGV; evaluator.cpp:1649-1724)."""
         return multiply_tree(self, batches, relin_keys)

@@ -20,8 +20,8 @@ split over the limb axis and, for batches, its leading axis over the data
 Every result equals the single-device body's bit for bit.  ``plan_for(cd,
 device)`` gives the key-switch constants of a level on a device; the
 evaluators pass their cache of them.  Both ``Evaluator(mesh=...)`` and
-``parallel/batch.BatchEvaluator`` run these bodies.  BFV data on a mesh is
-not ported yet (:func:`bfv_not_ported`, ROADMAP.md item 13).
+``parallel/batch.BatchEvaluator`` run these bodies.  BFV and BGV data on a
+mesh is not ported yet (:func:`mesh_not_ported`, ROADMAP.md item 13).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..ckks_bodies import KeySwitchPlan, convolve, key_switch_contract, key_swit
 from ..context import ContextData
 from ..ops import rns as R
 from ..ops.poly import apply_galois_ntt
-from ..params import SchemeType, not_ported
+from ..params import SchemeType
 from .collectives import broadcast, gather_range
 from .mesh import ShardedTensor, split_bounds
 from .shard_ops import gather_add_mod
@@ -42,11 +42,11 @@ from .shard_ops import gather_add_mod
 PlanFor = Callable[[ContextData, torch.device], KeySwitchPlan]
 
 
-def bfv_not_ported() -> NotImplementedError:
-    """The error for BFV data sharded over a mesh: the BEHZ multiply's base
-    conversions contract over every q limb, and this layer has no gather
-    for them yet."""
-    return NotImplementedError("BFV on a mesh is not ported yet (ROADMAP.md queue 1, item 13)")
+def mesh_not_ported(scheme: SchemeType) -> NotImplementedError:
+    """The error for BFV or BGV data sharded over a mesh: the BEHZ
+    multiply's base conversions and BGV's mod-t corrections read every q
+    limb or the last one, and this layer has no exchange for them yet."""
+    return NotImplementedError(f"{scheme.name} on a mesh is not ported yet (ROADMAP.md queue 1, item 13)")
 
 
 def _limb_groups(st: ShardedTensor) -> List[List[int]]:
@@ -176,7 +176,7 @@ def switch_key(plan_for: PlanFor, cd: ContextData, data: ShardedTensor, target: 
     (c0, 0) plus the switched pair.  The key's components may be sharded
     (over the same mesh) or whole."""
     if cd.parms.scheme != SchemeType.CKKS:
-        raise not_ported(cd.parms.scheme)
+        raise mesh_not_ported(cd.parms.scheme)
     totals = contract(plan_for, cd, data, target, key)
     size = 2 if isinstance(target, ShardedTensor) else target
     shards = []

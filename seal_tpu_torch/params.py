@@ -33,16 +33,6 @@ class SchemeType(enum.IntEnum):
     BGV = 0x3
 
 
-_NOT_PORTED = {
-    SchemeType.BGV: "BGV is not ported yet (ROADMAP.md queue 1, item 10)",
-}
-
-
-def not_ported(scheme: SchemeType) -> NotImplementedError:
-    """The error for a scheme the port does not run yet, naming its ROADMAP item."""
-    return NotImplementedError(_NOT_PORTED.get(scheme, f"scheme {scheme.name} is not supported"))
-
-
 class EncryptionParameters:
     def __init__(self, scheme: SchemeType = SchemeType.NONE):
         self._scheme = SchemeType(scheme)

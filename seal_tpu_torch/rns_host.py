@@ -4,8 +4,8 @@ Port of ``seal_tpu/rns_host.py`` (counterpart of the reference's
 ``util/rns.{h,cpp}``): the CRT base with its punctured products, compose
 and decompose; the fast base converter's change matrix; and the per-level
 ``RNSTool``: the BEHZ bases of the BFV multiply (B, Bsk = B U {m_sk},
-Bsk U {m_tilde}, {t, gamma}), their six converters and constants, and the
-modulus-switch constants.  Every constant is an exact Python int computed
+Bsk U {m_tilde}, {t, gamma}), their converters and constants, BGV's exact
+conversion q -> {t}, and the modulus-switch constants.  Every constant is an exact Python int computed
 once per context level; ``ops/rns.py`` builds the int64 tensors of each
 object once per device and keeps them in its ``device_cache``.
 
@@ -114,6 +114,13 @@ class HostBaseConverter:
         self.matrix = [[p % oj for p in ibase.punctured_prod] for oj in obase.values]
         pres = self.prescale or [1] * ibase.size
         self.inv_punct = [inv * (pre % q) % q for inv, q, pre in zip(ibase.inv_punctured, ibase.values, pres)]
+        # the exact conversion's constants (``ops/rns.exact_convert_array``):
+        # the 2^-128 fixed-point reciprocals floor(2^128 / q_i) as low and
+        # high words, and Q mod the first output modulus
+        iratio = [(1 << 128) // q for q in ibase.values]
+        self.iratio_lo = [r & ((1 << 64) - 1) for r in iratio]
+        self.iratio_hi = [r >> 64 for r in iratio]
+        self.q_mod_obase0 = ibase.base_prod % obase.values[0]
         # the conversion's device constants, built by ops/rns.py once per device
         self.device_cache: dict = {}
 
@@ -159,6 +166,8 @@ class HostRNSTool:
             base_q, self.base_Bsk_m_tilde, prescale=[self.m_tilde.value] * k)
         self.conv_B_to_q_m_sk = HostBaseConverter(self.base_B, HostRNSBase(list(base_q.moduli) + [self.m_sk]))
         self.conv_q_to_t_gamma = None if self.base_t_gamma is None else HostBaseConverter(base_q, self.base_t_gamma)
+        # BGV decryption's exact conversion q -> {t} (``ops/rns.decrypt_modt``)
+        self.conv_q_to_t = None if self.t.is_zero else HostBaseConverter(base_q, HostRNSBase([self.t]))
 
         q_prod = base_q.base_prod
         B_prod = self.base_B.base_prod

@@ -264,18 +264,22 @@ def test_convert_round_trips(pair):
 
 
 def test_unported_client_parts_raise(pair):
-    """BGV's client (BFV's is ported, tests/test_torch_bfv.py)."""
+    """BGV's client, the last scheme's to be ported, runs now
+    (tests/test_torch_bgv.py holds it to the JAX package): a BGV encryption
+    is in NTT form and decrypts, and what raises is a BGV ciphertext in
+    coefficient form, as in the JAX package."""
     parms = P.EncryptionParameters(P.SchemeType.BGV)
     parms.set_poly_modulus_degree(1024)
     parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40, 40]))
     parms.set_plain_modulus(P.Modulus(65537))
     ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
     sk = P.KeyGenerator(ctx).secret_key
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.Encryptor(ctx, secret_key=sk)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    ct = P.Encryptor(ctx, secret_key=sk).encrypt_symmetric(P.Plaintext.from_coeffs([1, 2, 3]))
+    assert ct.is_ntt_form and ct.correction_factor == 1
+    assert list(P.Decryptor(ctx, sk).decrypt(ct).coeff_data) == [1, 2, 3]
+    with pytest.raises(ValueError, match="BGV encrypted must be in NTT form"):
         P.Decryptor(ctx, sk).invariant_noise_budget(P.Ciphertext(torch.zeros((2, 2, 1024), dtype=torch.int64),
-                                                                 ctx.first_parms_id, True, 1.0))
+                                                                 ctx.first_parms_id, False, 1.0))
 
 
 # -- (g) the round trip --------------------------------------------------------

@@ -521,3 +521,64 @@ def test_bfv_request_on_card_gives_bfv_digest(card, n):
     assert switch_key_contract_cuda.launches == before + 1
     for r in range(2):
         assert torch.equal(batch.data[r], singles[r])
+
+
+# -- BGV (golden.bgv_context: BFV's chain and t as a BGV context) ---------------
+
+def _bgv_request_inputs(ctx, device, requests):
+    n = ctx.first_context_data().parms.poly_modulus_degree
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, device)
+    galois = [None] * n
+    galois[golden.BGV_GALOIS_ELT >> 1] = golden.galois_key_inputs(ctx, golden.BGV_GALOIS_SEED)
+    gk = galois_keys_from_numpy(galois, ctx.key_parms_id, device)
+    cts = [[ciphertext_from_numpy(d, ctx.first_parms_id, True, 1.0, device)
+            for d in golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)] for r in range(requests)]
+    return cts, rk, gk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_ntt_kernel_matches_plain_at_bgv_shapes(card, n):
+    """The reduced transforms BGV adds: the key-switch tail's inverse of the
+    (2, 1, n) special-prime rows and forward of the (2, D, n) correction,
+    and the mod-t switch's (2, 1, n) inverse and (2, k - 1, n) forward; one
+    request's shapes and a batch of 4's."""
+    ctx = golden.bgv_context(n, card)
+    cd = ctx.first_context_data()
+    first_t, key_t = cd.limb_tables(), ctx.key_context_data().limb_tables()
+    k = len(cd.coeff_modulus_values)
+    cases = [(slice_limbs(key_t, k, k + 1), (2, 1, n), True), (slice_limbs(key_t, 0, k), (2, k, n), False),
+             (slice_limbs(first_t, k - 1, k), (2, 1, n), True), (slice_limbs(first_t, 0, k - 1), (2, k - 1, n), False)]
+    cases += [(tab, (4, *shape), inverse) for tab, shape, inverse in cases]
+    for i, (tab, shape, inverse) in enumerate(cases):
+        x = _uniform(shape, tab.q * (2 if inverse else 4), card, i)
+        want = ntt_inverse(x, tab) if inverse else ntt_forward(x, tab)
+        assert torch.equal(ntt_cuda(x, tab, inverse), want)
+
+
+@pytest.mark.cuda
+def test_bgv_request_on_card_gives_bgv_digest(card):
+    """golden.bgv_request at N=8192 through the kernels: the JAX package's
+    digest and correction factor, equal to the plain path on the card, 8
+    launches of kernel A and 2 of kernel B, none of the stage kernel; a
+    batch of 2 through BatchEvaluator equal to the single requests, with the
+    same launches."""
+    ctx = golden.bgv_context(golden.BGV_N, card)
+    cts, rk, gk = _bgv_request_inputs(ctx, card, 2)
+    ev, bev = Evaluator(ctx), BatchEvaluator(ctx)
+    counters = lambda: (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+    before = counters()
+    out = golden.bgv_request(ev, *cts[0], rk, gk)
+    assert [y - x for x, y in zip(before, counters())] == [8, 2, 0]
+    assert golden.digest(u64_to_numpy(out.data)) == golden.BGV_DIGEST
+    assert out.correction_factor == golden.BGV_CORRECTION_FACTOR
+    with NTT.plain_on_card():
+        assert torch.equal(golden.bgv_request(ev, *cts[0], rk, gk).data, out.data)
+    singles = [golden.bgv_request(ev, a, b, rk, gk) for a, b in cts]
+    before = counters()
+    batch = golden.bgv_request(bev, CiphertextBatch.from_ciphertexts([a for a, _ in cts]),
+                               CiphertextBatch.from_ciphertexts([b for _, b in cts]), rk, gk)
+    assert [y - x for x, y in zip(before, counters())] == [8, 2, 0]
+    assert batch.correction_factor == golden.BGV_CORRECTION_FACTOR
+    for r in range(2):
+        assert torch.equal(batch.data[r], singles[r].data)

@@ -357,8 +357,9 @@ def _scheme_context(scheme):
 
 
 def test_bfv_contexts_raise_not_ported():
-    """BFV is ported on one device (tests/test_torch_bfv.py); its data on a
-    mesh raises naming ROADMAP item 13, and BGV's ops item 10."""
+    """BFV and BGV are ported on one device (tests/test_torch_bfv.py,
+    tests/test_torch_bgv.py); their data on a mesh raises naming ROADMAP
+    item 13."""
     from seal_tpu_torch.parallel.mesh import make_mesh
 
     bfv = _scheme_context(P.SchemeType.BFV)
@@ -369,8 +370,8 @@ def test_bfv_contexts_raise_not_ported():
         with pytest.raises(NotImplementedError, match="item 13"):
             call()
     ctx = _scheme_context(P.SchemeType.BGV)
-    ev = P.Evaluator(ctx)
-    ct = P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), ctx.first_parms_id, True, 1.0)
+    ev = P.Evaluator(ctx, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
+    ct = ev.shard(P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), ctx.first_parms_id, True, 1.0))
     gk = P.GaloisKeys()
     gk.parms_id = ctx.key_parms_id
     gk.keys = [None] * 64
@@ -378,7 +379,7 @@ def test_bfv_contexts_raise_not_ported():
     for call in (lambda: ev.rotate_rows(ct, 1, gk), lambda: ev.multiply(ct, ct),
                  lambda: ev.multiply_plain(ct, P.Plaintext.from_coeffs([1])), lambda: ev.mod_switch_to_next(ct),
                  lambda: ev.multiply_many([ct, ct], None), lambda: ev.add_plain(ct, P.Plaintext.from_coeffs([1]))):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="BGV on a mesh .* item 13"):
             call()
     with pytest.raises(ValueError, match="unsupported scheme"):
         ev.rotate_vector(ct, 1, gk)

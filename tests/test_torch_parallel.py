@@ -282,8 +282,8 @@ def _scheme_context(scheme):
 
 
 def test_unported_batch_methods_name_their_roadmap_item(state):
-    """BFV batches on a mesh name ROADMAP item 13 (BFV on one device is
-    ported, tests/test_torch_bfv.py), BGV batches item 10."""
+    """BFV and BGV batches on a mesh name ROADMAP item 13 (both are ported
+    on one device, tests/test_torch_bfv.py and tests/test_torch_bgv.py)."""
     bev = BatchEvaluator(state["ctx"])
     b1, _ = _batches(state)
     for call in (lambda: bev.rotate_rows(b1, 1, None), lambda: bev.rotate_columns(b1, None),
@@ -298,13 +298,14 @@ def test_unported_batch_methods_name_their_roadmap_item(state):
         with pytest.raises(NotImplementedError, match="item 13"):
             getattr(mesh_bev, method)(sharded_batch, *args)
     gctx = _scheme_context(P.SchemeType.BGV)
-    batch = CiphertextBatch(data, gctx.first_parms_id, True)
+    mesh_gev = BatchEvaluator(gctx, make_mesh(8, limb_parallel=2, devices=CPU8))
+    batch = mesh_gev.shard(CiphertextBatch(data, gctx.first_parms_id, True))
     for method, args in (("multiply", (batch,)), ("rotate_rows", (1, None)), ("rotate_columns", (None,)),
                          ("multiply_plain", (P.Plaintext.from_coeffs([1]),)), ("mod_switch_to_next", ())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(BatchEvaluator(gctx), method)(batch, *args)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        BatchEvaluator(gctx).multiply_many([batch, batch], None)
+        with pytest.raises(NotImplementedError, match="BGV on a mesh .* item 13"):
+            getattr(mesh_gev, method)(batch, *args)
+    with pytest.raises(NotImplementedError, match="BGV on a mesh .* item 13"):
+        mesh_gev.multiply_many([batch, batch], None)
 
 
 # -- (f) the batched Galois, plaintext and transform methods ---------------------

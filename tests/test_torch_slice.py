@@ -118,20 +118,21 @@ def evaluator_outputs():
 
 def test_evaluator_equals_jax_at_n1024(evaluator_outputs):
     jout, pout = evaluator_outputs
-    data, parms_id, is_ntt_form, scale = ciphertext_to_numpy(pout)
+    data, parms_id, is_ntt_form, scale, correction_factor = ciphertext_to_numpy(pout)
     np.testing.assert_array_equal(data, jout.to_np())
     assert parms_id == jout.parms_id
     assert is_ntt_form == jout.is_ntt_form
     assert scale == jout.scale
+    assert correction_factor == jout.correction_factor
 
 
 def test_convert_round_trip():
     rng = np.random.default_rng(4)
     data = rng.integers(0, np.iinfo(np.uint64).max, (2, 3, 16), dtype=np.uint64, endpoint=True)
-    ct = ciphertext_from_numpy(data, (1, 2, 3, 4), True, 2.0 ** 40, "cpu")
-    back, pid, ntt, scale = ciphertext_to_numpy(ct)
+    ct = ciphertext_from_numpy(data, (1, 2, 3, 4), True, 2.0 ** 40, "cpu", correction_factor=7)
+    back, pid, ntt, scale, factor = ciphertext_to_numpy(ct)
     np.testing.assert_array_equal(back, data)
-    assert (pid, ntt, scale) == ((1, 2, 3, 4), True, 2.0 ** 40)
+    assert (pid, ntt, scale, factor) == ((1, 2, 3, 4), True, 2.0 ** 40, 7)
     rk = relin_keys_from_numpy([None, (data, data[::-1].copy())], (5, 6, 7, 8), "cpu")
     keys, pid = relin_keys_to_numpy(rk)
     assert keys[0] is None and pid == (5, 6, 7, 8)
@@ -192,15 +193,18 @@ def test_context_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_schemes_raise_not_implemented():
-    """BGV (BFV is ported, tests/test_torch_bfv.py)."""
+    """Every scheme runs on one device now (BGV: tests/test_torch_bgv.py);
+    BGV data sharded over a mesh raises naming its ROADMAP item."""
+    from seal_tpu_torch.parallel.mesh import make_mesh
+
     parms = P.EncryptionParameters(P.SchemeType.BGV)
     parms.set_poly_modulus_degree(1024)
     parms.set_coeff_modulus(P.CoeffModulus.create(1024, [40, 40, 40]))
     parms.set_plain_modulus(P.Modulus(65537))
     ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
-    ev = Evaluator(ctx)
-    data = torch.zeros((2, 2, 1024), dtype=torch.int64)
-    ct = P.Ciphertext(data, ctx.first_parms_id, True, 1.0)
+    ev = Evaluator(ctx, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
+    data = torch.ones((2, 2, 1024), dtype=torch.int64)
+    ct = ev.shard(P.Ciphertext(data, ctx.first_parms_id, True, 1.0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ev.multiply(ct, ct)
 
