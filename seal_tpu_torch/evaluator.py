@@ -53,6 +53,10 @@ from .ops import rns as R
 from .ops import u64 as U
 from .ops.rns import _c, _cshoup
 
+# The reference's SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT build option (ON);
+# an evaluator checks its results only while this and its own flag are set.
+THROW_ON_TRANSPARENT = True
+
 
 def are_same_scale(scale1: float, scale2: float) -> bool:
     """Reference semantics (``util::are_close``, common.h:574-578 via
@@ -134,8 +138,13 @@ def _is_scale_within_bounds(scale: float, cd: ContextData) -> bool:
 
 
 class Evaluator:
-    def __init__(self, context: SealContext, mesh=None):
-        """``mesh`` (an ``HEMesh``, ``parallel/mesh.py``) makes the evaluator
+    def __init__(self, context: SealContext, throw_on_transparent: bool = True, mesh=None):
+        """``throw_on_transparent`` mirrors the reference's
+        SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT option (default ON).  The check
+        reads one flag back from the device after every op, which waits for
+        the op, so latency-critical pipelines may turn it off.
+
+        ``mesh`` (an ``HEMesh``, ``parallel/mesh.py``) makes the evaluator
         mesh-aware: ciphertexts and keys placed with :meth:`shard` and
         :meth:`shard_keys` have their RNS limbs split over the mesh's limb
         axis, and the ops then run on every rank's limbs, with the
@@ -146,6 +155,7 @@ class Evaluator:
         if not context.parameters_set:
             raise ValueError("encryption parameters are not set correctly")
         self.context = context
+        self.throw_on_transparent = throw_on_transparent
         self.hem = mesh
         self._plans: Dict[tuple, KeySwitchPlan] = {}
 
@@ -191,11 +201,9 @@ class Evaluator:
             raise ValueError(f"ciphertext lies on {ct.data.device}, the context on {self.context.device}")
         return cd
 
-    @staticmethod
-    def _check_transparent(ct: Ciphertext):
-        """The reference's SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT default (ON);
-        reads one flag back from the device."""
-        if ct.is_transparent():
+    def _check_transparent(self, ct: Ciphertext):
+        """Reads one flag back from the device, unless the check is off."""
+        if THROW_ON_TRANSPARENT and self.throw_on_transparent and ct.is_transparent():
             raise ValueError("result ciphertext is transparent")
 
     @staticmethod
