@@ -146,6 +146,35 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        rotate_rows(1) and rotate_columns, equal to the plain path, decoded
        equal to numpy's (a b + c) mod t with the rows rotated and the
        columns swapped; the noise budget fresh and at the end, above 0.
+13. The wire path (``serialization.py``, ``valcheck.py``; zstd only where
+   the ``zstandard`` module imports, and the modes that ran are printed):
+   (a) Microsoft SEAL's blobs (``tests/data/wire``) on the card: contexts
+       from the four parameter blobs with the blobs' fixed seed; the port's
+       fixed-seed secret keys, the BFV public, relinearization and Galois
+       keys and the N=4096 public and Galois keys, made on the card, equal
+       to the blobs byte for byte; every object loaded onto the card and
+       checked with ``valcheck.is_valid_for`` (key rows as public keys);
+       the BFV ciphertexts (full, seeded, compressed, the product) and the
+       BGV ones decrypt to the manifest, the BFV product through the
+       loaded relinearization keys (full and seeded) and rotations through
+       the loaded Galois keys (N=64 full and seeded, N=4096) give its
+       slots, the CKKS ones decode within 1e-3; kernels A and B counted;
+   (b) the linear-layer step at N=32768 on ``bfv_default(32768)``, TC128,
+       over the wire: a client on the card (seeded BLAKE2XB keygen,
+       relinearization and Galois keys with ``save_seed``, 4
+       ``encrypt_symmetric(save_seed=True)`` and a weight plaintext) saves
+       every object in every mode (the bytes and the save ms printed); a
+       server builds its context from the parameters' bytes, loads and
+       checks every object (ms split into decompression, seed expansion,
+       host-to-device copy, valcheck and the rest), each loaded object
+       equal to the saved one; 4 requests served bytes in to bytes out and
+       as one batch, every reply equal to serving the client's in-memory
+       objects, kernel A 8 and kernel B 2 launches per request and per
+       batch; ms per request over the wire against in memory; the client
+       decrypts the replies (``decrypt`` of each equal to ``decrypt_batch``,
+       both timed) and decodes them within 1e-3 of numpy;
+   (c) ``Evaluator(ctx, throw_on_transparent=False)``: the same replies,
+       its ms per request beside the default's.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -158,6 +187,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -183,6 +213,12 @@ OPS_BUTTERFLY = 3 * OPS_MUL64 + 6 * OPS_ADD64
 # the seeds of phase 11's and phase 12's slot vectors
 BFV_SLOT_SEED = 11
 BGV_SLOT_SEED = 12
+# phase 13: Microsoft SEAL's blobs (tests/data/wire) and their fixed PRNG
+# seed; the wire client's factory seed and the seed of its slot vectors
+WIRE_DATA = os.path.join(ROOT, "tests", "data", "wire")
+WIRE_SEED = tuple(0x1111111111111111 * (i + 1) for i in range(8))
+WIRE_CLIENT_SEED = (41, 42, 43, 44, 45, 46, 47, 48)
+WIRE_SLOT_SEED = 13
 
 
 def check(ok, what):
@@ -1414,6 +1450,447 @@ def bgv_phase(gen):
     return result
 
 
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def wire_phase(card_line, n=None):
+    """Phase 13: the wire path.  (a) Microsoft SEAL's blobs on the card;
+    (b) the N=32768 linear-layer request saved by a client, loaded, checked
+    and served on the card, its replies saved and decrypted; (c) the same
+    request with ``throw_on_transparent=False``.  Returns the launches of
+    kernels A and B for the kernels' JSON line.  ``n`` (default
+    ``golden.MEDIUM_N``) sizes (b) and (c)."""
+    from seal_tpu_torch import (BatchEncoder, CKKSEncoder, Ciphertext, Decryptor, Encryptor, GaloisKeys,
+                                KeyGenerator, PRNGType, PublicKey, RelinKeys, SealContext,
+                                UniformRandomGeneratorFactory)
+    from seal_tpu_torch import golden
+    from seal_tpu_torch import serialization as S
+    from seal_tpu_torch import valcheck as V
+    from seal_tpu_torch.convert import u64_from_numpy
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.modulus import CoeffModulus, SecurityLevel
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda
+    from seal_tpu_torch.params import EncryptionParameters, SchemeType
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+    from seal_tpu_torch.random.sampler import sample_poly_uniform
+
+    n = n or golden.MEDIUM_N
+    modes = {"none": S.COMPR_NONE, "zlib": S.COMPR_ZLIB}
+    if S._HAS_ZSTD:
+        modes["zstd"] = S.COMPR_ZSTD
+    print(f"[wire] {card_line}; compression modes {', '.join(modes)}"
+          + ("" if S._HAS_ZSTD else " (zstandard is not installed here: zstd not run)"))
+
+    def counted(fn):
+        """fn() with the three counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"ntt": ntt_cuda.launches, "switch_key": switch_key_contract_cuda.launches,
+                     "four_step_stage": stage_cuda.launches}
+
+    def timed(fn):
+        """(fn(), host ms up to a synchronize)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def valid_for(obj, ctx):
+        """valcheck.is_valid_for; a public key's data check is its
+        ciphertext's, and a key-switching key's rows are checked as public
+        keys at the key level."""
+        if isinstance(obj, PublicKey):
+            return V.is_metadata_valid_for(obj, ctx) and V.is_data_valid_for(obj.data, ctx)
+        if isinstance(obj, (RelinKeys, GaloisKeys)):
+            return all(valid_for(PublicKey(Ciphertext(torch.stack([e["c0"][j], e["c1"][j]]), obj.parms_id, True)), ctx)
+                       for e in obj.keys if e is not None for j in range(e["c0"].shape[0]))
+        return V.is_valid_for(obj, ctx)
+
+    # ---- (a) Microsoft SEAL's blobs ----------------------------------------
+    t_a = time.perf_counter()
+
+    def blob(name):
+        with open(os.path.join(WIRE_DATA, name), "rb") as f:
+            return f.read()
+
+    manifest = {"ckks_val": {}, "bfv4096_rot_slot": {}}
+    for line in blob("manifest.txt").decode().splitlines():
+        key, _, rest = line.strip().partition(" ")
+        if key in manifest:
+            idx, val = rest.split(" ", 1)
+            manifest[key][int(idx)] = float(val) if key == "ckks_val" else int(val)
+        elif key.endswith("_hex"):
+            manifest[key] = rest
+    ctxs = {}
+    for name in ("bfv", "bgv", "ckks", "bfv4096"):
+        raw = blob(f"{name}_parms.bin")
+        parms, _ = S.params_load(raw)
+        check(S.params_save(parms, S.COMPR_NONE) == raw, f"wire: {name}_parms.bin does not save back byte for byte")
+        parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, WIRE_SEED))
+        ctxs[name] = SealContext(parms, True, SecurityLevel.TC128 if name == "bfv4096" else SecurityLevel.NONE)
+    loaded = []
+
+    def load(kind, name, ctx):
+        raw = blob(name)
+        loader = {"ct": S.ciphertext_load, "sk": S.secret_key_load, "pk": S.public_key_load,
+                  "pt": S.plaintext_load, "rk": lambda b, c: S.kswitch_keys_load(b, c, RelinKeys),
+                  "gk": lambda b, c: S.kswitch_keys_load(b, c, GaloisKeys)}[kind]
+        obj, used = loader(raw, ctx)
+        check(used == len(raw), f"wire: {name} loaded {used} of {len(raw)} bytes")
+        if kind in ("rk", "gk"):
+            tensors = [t for e in obj.keys if e is not None for t in (e["c0"], e["c1"])]
+        else:
+            tensors = [{"ct": lambda: obj.data, "sk": lambda: obj.data, "pk": lambda: obj.data.data,
+                        "pt": lambda: obj.rns_data}[kind]()]
+            tensors = [t for t in tensors if t is not None]
+        check(valid_for(obj, ctx), f"wire: {name} fails valcheck.is_valid_for")
+        check(all(t.device == ctx.device for t in tensors), f"wire: {name} did not load onto {ctx.device}")
+        loaded.append(name)
+        return obj
+
+    # the port's fixed-seed keys, made on the card, against the reference's bytes
+    for name in ("bfv", "bgv", "ckks", "bfv4096"):
+        check(S.secret_key_save(KeyGenerator(ctxs[name]).secret_key, S.COMPR_NONE) == blob(f"{name}_sk.bin"),
+              f"wire: the fixed-seed {name} secret key differs from {name}_sk.bin")
+    kg = KeyGenerator(ctxs["bfv"])
+    for label, got in (("bfv_pk", S.public_key_save(kg.create_public_key(), S.COMPR_NONE)),
+                       ("bfv_rlk", S.kswitch_keys_save(kg.create_relin_keys(), ctxs["bfv"], S.COMPR_NONE)),
+                       ("bfv_glk", S.kswitch_keys_save(kg.create_galois_keys_from_steps([1, -1]), ctxs["bfv"],
+                                                       S.COMPR_NONE))):
+        check(got == blob(f"{label}.bin"), f"wire: the fixed-seed {label} made on the card differs from {label}.bin")
+    kg = KeyGenerator(ctxs["bfv4096"])
+    check(S.public_key_save(kg.create_public_key(), S.COMPR_NONE) == blob("bfv4096_pk.bin"),
+          "wire: the fixed-seed bfv4096 public key differs from bfv4096_pk.bin")
+    check(S.kswitch_keys_save(kg.create_galois_keys_from_steps([1]), ctxs["bfv4096"], S.COMPR_NONE)
+          == blob("bfv4096_glk.bin"), "wire: the fixed-seed bfv4096 Galois keys differ from bfv4096_glk.bin")
+    del kg
+
+    def serve_blobs():
+        ctx = ctxs["bfv"]
+        sk = load("sk", "bfv_sk.bin", ctx)
+        load("pk", "bfv_pk.bin", ctx)
+        load("sk", "bfv_sk_zlib.bin", ctx)
+        dec, ev = Decryptor(ctx, sk), Evaluator(ctx)
+        check(load("pt", "bfv_pt.bin", ctx).to_string() == manifest["bfv_pt_hex"], "wire: bfv_pt.bin")
+        names = ["bfv_ct", "bfv_ct_seeded", "bfv_ct_zlib"] + (["bfv_ct_zstd"] if S._HAS_ZSTD else [])
+        for name in names:
+            got = dec.decrypt(load("ct", f"{name}.bin", ctx)).to_string()
+            check(got == manifest["bfv_pt_hex"], f"wire: {name}.bin decrypts to {got!r}")
+        check(dec.decrypt(load("ct", "bfv_ct_prod.bin", ctx)).to_string() == manifest["bfv_prod_hex"],
+              "wire: bfv_ct_prod.bin")
+        ct = load("ct", "bfv_ct.bin", ctx)
+        for name in ("bfv_rlk", "bfv_rlk_seeded"):
+            rk = load("rk", f"{name}.bin", ctx)
+            got = dec.decrypt(ev.add(ev.relinearize(ev.multiply(ct, ct), rk), ct)).to_string()
+            check(got == manifest["bfv_prod_hex"], f"wire: bfv_ct x bfv_ct with {name} decrypts to {got!r}")
+        be = BatchEncoder(ctx)
+        vals = np.arange(be.slots, dtype=np.uint64) % 17
+        sym = Encryptor(ctx, secret_key=sk).encrypt_symmetric(be.encode(vals))
+        half = be.slots // 2
+        want = np.concatenate([np.roll(vals[:half], -1), np.roll(vals[half:], -1)])
+        for name in ("bfv_glk", "bfv_glk_seeded"):
+            got = be.decode(dec.decrypt(ev.rotate_rows(sym, 1, load("gk", f"{name}.bin", ctx))))
+            check(np.array_equal(got, want), f"wire: rotate_rows(1) with {name}.bin")
+        ctx = ctxs["bfv4096"]
+        sk, gk = load("sk", "bfv4096_sk.bin", ctx), load("gk", "bfv4096_glk.bin", ctx)
+        be, dec, ev = BatchEncoder(ctx), Decryptor(ctx, sk), Evaluator(ctx)
+        for name in ["bfv4096_ct", "bfv4096_ct_zlib"] + (["bfv4096_ct_zstd"] if S._HAS_ZSTD else []):
+            ct = load("ct", f"{name}.bin", ctx)
+            check(S.ciphertext_save(ct, S.COMPR_NONE) == blob("bfv4096_ct.bin"), f"wire: {name}.bin re-saved")
+            got = be.decode(dec.decrypt(ev.rotate_rows(ct, 1, gk)))
+            check(all(got[i] == v for i, v in manifest["bfv4096_rot_slot"].items()),
+                  f"wire: {name}.bin rotated does not give the manifest's slots")
+        ctx = ctxs["bgv"]
+        dec = Decryptor(ctx, load("sk", "bgv_sk.bin", ctx))
+        load("pk", "bgv_pk.bin", ctx)
+        for name in ("bgv_ct", "bgv_ct_seeded"):
+            got = dec.decrypt(load("ct", f"{name}.bin", ctx)).to_string()
+            check(got == manifest["bgv_pt_hex"], f"wire: {name}.bin decrypts to {got!r}")
+        ctx = ctxs["ckks"]
+        dec, enc = Decryptor(ctx, load("sk", "ckks_sk.bin", ctx)), CKKSEncoder(ctx)
+        load("pk", "ckks_pk.bin", ctx)
+        worst = 0.0
+        for name in ("ckks_ct", "ckks_ct_seeded", "ckks_pt"):
+            obj = load("pt" if name == "ckks_pt" else "ct", f"{name}.bin", ctx)
+            vals = enc.decode(obj if name == "ckks_pt" else dec.decrypt(obj))
+            err = max(max(abs(vals[i].real - v), abs(vals[i].imag)) for i, v in manifest["ckks_val"].items())
+            check(err < 1e-3, f"wire: {name}.bin decodes {err} from the manifest")
+            worst = max(worst, err)
+        return worst
+
+    worst, blob_launches = counted(serve_blobs)
+    check(blob_launches["ntt"] > 0 and blob_launches["switch_key"] > 0,
+          f"wire: SEAL's blobs were served without kernels A and B: {blob_launches}")
+    print(f"[wire] (a) Microsoft SEAL's blobs: the four parameter sets save back byte for byte; the port's "
+          f"fixed-seed secret keys (bfv, bgv, ckks, bfv4096), bfv public, relinearization and Galois keys and "
+          f"bfv4096 public and Galois keys, made on the card, equal the reference's blobs byte for byte; "
+          f"{len(loaded)} loads onto the card, each passing valcheck.is_valid_for (key rows as public keys); "
+          f"bfv_ct, bfv_ct_seeded, the zlib{' and zstd' if S._HAS_ZSTD else ''} blobs decrypt to bfv_pt_hex; "
+          f"bfv_ct x bfv_ct -> relinearize (bfv_rlk and bfv_rlk_seeded) + bfv_ct and bfv_ct_prod decrypt to "
+          f"bfv_prod_hex; rotate_rows(1) with bfv_glk, bfv_glk_seeded and bfv4096_glk gives the expected slots; "
+          f"bgv_ct and bgv_ct_seeded decrypt to bgv_pt_hex; ckks_ct, ckks_ct_seeded and ckks_pt decode within "
+          f"{worst:.2e} of the manifest (bound 1e-3); launches: kernel A {blob_launches['ntt']}, kernel B "
+          f"{blob_launches['switch_key']}; {time.perf_counter() - t_a:.1f} s")
+    del ctxs
+
+    # ---- (b) the N=32768 linear-layer request over the wire ----------------
+    t_b = time.perf_counter()
+    requests = 4
+    scale = golden.LINEAR_SCALE
+    step = golden.linear_layer_step
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, WIRE_CLIENT_SEED))
+    cctx = SealContext(parms, True, SecurityLevel.TC128)
+    kg = KeyGenerator(cctx)
+    sk = kg.secret_key
+    rk = kg.create_relin_keys(save_seed=True)
+    gk = kg.create_galois_keys_from_steps([1], save_seed=True)
+    enc = CKKSEncoder(cctx)
+    rng = np.random.default_rng(WIRE_SLOT_SEED)
+    vs = [rng.uniform(-1, 1, n // 2) for _ in range(requests)]
+    w = rng.uniform(-1, 1, n // 2)
+    pw = enc.encode(w, scale)
+    sym = Encryptor(cctx, secret_key=sk)
+    cts = [sym.encrypt_symmetric(enc.encode(v, scale), save_seed=True) for v in vs]
+    torch.cuda.synchronize()
+    client_s = time.perf_counter() - t_b
+
+    def unseeded_ct(ct):
+        out = ct.copy()
+        out.seed_info = None
+        return out
+
+    def unseeded_keys(keys):
+        out = type(keys)()
+        out.parms_id = keys.parms_id
+        out.keys = [None if e is None else {"c0": e["c0"], "c1": e["c1"], "seeds": None} for e in keys.keys]
+        return out
+
+    full_cts = [unseeded_ct(c) for c in cts]
+    objects = {  # kind: (saver, the object as the client sends it, its full form)
+        "params": (lambda o, m: S.params_save(o, m), parms, None),
+        "secret key": (S.secret_key_save, sk, None),
+        "plaintext": (S.plaintext_save, pw, None),
+        "ciphertext": (S.ciphertext_save, cts[0], full_cts[0]),
+        "relin key": (lambda o, m: S.kswitch_keys_save(o, cctx, m), rk, unseeded_keys(rk)),
+        "Galois key": (lambda o, m: S.kswitch_keys_save(o, cctx, m), gk, unseeded_keys(gk)),
+    }
+    sizes, save_ms, blobs = {}, {}, {}
+
+    def save_one(label, mode, save, obj):
+        raw, ms = timed(lambda: save(obj, modes[mode]))
+        sizes[(label, mode)], save_ms[(label, mode)], blobs[(label, mode)] = len(raw), ms, raw
+
+    # the full keys' compressed forms, only there to show what the seeds
+    # save, are written two at a time in threads (zlib and zstd release
+    # the GIL); every other save runs alone
+    with ThreadPoolExecutor(2) as pool:
+        pending = []
+        for kind, (save, sent, full) in objects.items():
+            for form, obj in (("seeded", sent), ("full", full)) if full is not None else (("", sent),):
+                label = f"{kind}{' ' + form if form else ''}"
+                for mode in modes:
+                    if form == "full" and "key" in kind and mode != "none":
+                        pending.append((label, mode, save, obj))
+                    else:
+                        save_one(label, mode, save, obj)
+        for future in [pool.submit(save_one, *args) for args in pending]:
+            future.result()
+    request = {mode: {"params": blobs[("params", mode)], "plaintext": blobs[("plaintext", mode)],
+                      "relin key": blobs[("relin key seeded", mode)], "Galois key": blobs[("Galois key seeded", mode)],
+                      "cts": [blobs[("ciphertext seeded", mode)]] + [S.ciphertext_save(c, m) for c in cts[1:]]}
+               for mode, m in modes.items()}
+    k = len(cctx.first_context_data().coeff_modulus_values)
+    k_key = len(cctx.key_context_data().coeff_modulus_values)
+    # a seeded ciphertext drops c1 (8 k n bytes) and stores its seed (a
+    # header and 65 bytes); each of a seeded key's D rows likewise
+    check(sizes[("ciphertext full", "none")] - sizes[("ciphertext seeded", "none")] == 8 * k * n - 81,
+          "wire: the seeded ciphertext does not drop c1")
+    for label in ("relin key", "Galois key"):
+        check(sizes[(f"{label} full", "none")] - sizes[(f"{label} seeded", "none")] == k * (8 * k_key * n - 81),
+              f"wire: the seeded {label} does not drop c1")
+    print(f"[wire] (b) CKKS N={n}, CoeffModulus.bfv_default({n}) ({k_key} moduli), SecurityLevel.TC128: client keygen (seeded BLAKE2XB; relinearization and Galois "
+          f"(element {golden.LINEAR_GALOIS_ELT}) keys with save_seed), {requests} encrypt_symmetric(save_seed=True) of "
+          f"uniform(-1, 1) vectors and one weight plaintext at 2^40 in {client_s:.1f} s on the card")
+    print(f"[wire] bytes per object ({card_line}): " + "; ".join(
+        f"{label} " + ", ".join(f"{mode} {sizes[(label, mode)]}" for mode in modes)
+        for label in dict.fromkeys(lbl for lbl, _ in sizes)))
+    print(f"[wire] save ms per object (host clock to a synchronize, {card_line}; the full keys' compressed forms two "
+          f"at a time in threads): " + "; ".join(
+        f"{label} " + ", ".join(f"{mode} {save_ms[(label, mode)]:.1f}" for mode in modes)
+        for label in dict.fromkeys(lbl for lbl, _ in save_ms)))
+
+    # the server: a context from the parameters' bytes, every object loaded and checked
+    sparms, _ = S.params_load(request["none"]["params"])
+    sctx = SealContext(sparms, True, SecurityLevel.TC128)
+    key_moduli = sctx.key_context_data().coeff_modulus_values
+    first_moduli = sctx.first_context_data().coeff_modulus_values
+    loads, host_parts = {}, {}
+
+    def load_split(label, mode, load, host_shapes, seeds, moduli):
+        """Load a blob and split its time: decompression, seed expansion,
+        host-to-device copy (the last two timed alone once per object),
+        valcheck, and the rest: the total less the parts, parsing and host
+        copies (it may fall below 0 by the runs' spread)."""
+        raw = blobs[(label, mode)]
+        obj, total = timed(lambda: load(raw))
+        _, decompress = timed(lambda: S.load_header_wrapped(raw))
+        if label not in host_parts:                      # the same in every mode
+            expand = sum(timed(lambda: sample_poly_uniform(seed.make_prng(), n, moduli))[1] for seed in seeds)
+            h2d = sum(timed(lambda: u64_from_numpy(np.zeros(shape, dtype=np.uint64), sctx.device))[1]
+                      for shape in host_shapes)
+            host_parts[label] = expand, h2d
+        expand, h2d = host_parts[label]
+        ok, check_ms = timed(lambda: valid_for(obj, sctx))
+        check(ok, f"wire: the loaded {label} ({mode}) fails valcheck.is_valid_for")
+        loads[(label, mode)] = {"load_ms": total, "decompress_ms": decompress, "expand_ms": expand,
+                                "h2d_ms": h2d, "valcheck_ms": check_ms,
+                                "parse_ms": total - decompress - expand - h2d}
+        return obj
+
+    def load_rk(b):
+        return S.kswitch_keys_load(b, sctx, RelinKeys)[0]
+
+    def load_gk(b):
+        return S.kswitch_keys_load(b, sctx, GaloisKeys)[0]
+
+    def load_ct(b):
+        return S.ciphertext_load(b, sctx)[0]
+
+    server = {}
+    for mode in modes:
+        server[mode] = {
+            "relin key": load_split("relin key seeded", mode, load_rk, [(k, k_key, n)] * 2, rk.keys[0]["seeds"],
+                                    key_moduli),
+            "Galois key": load_split("Galois key seeded", mode, load_gk, [(k, k_key, n)] * 2,
+                                     gk.key(golden.LINEAR_GALOIS_ELT)["seeds"], key_moduli),
+            "plaintext": load_split("plaintext", mode, lambda b: S.plaintext_load(b, sctx)[0], [(k, n)], [],
+                                    first_moduli),
+            "ciphertext": load_split("ciphertext seeded", mode, load_ct, [(2, k, n)], [cts[0].seed_info],
+                                     first_moduli),
+        }
+        load_split("relin key full", mode, load_rk, [(k, k_key, n)] * 2, [], key_moduli)
+        load_split("Galois key full", mode, load_gk, [(k, k_key, n)] * 2, [], key_moduli)
+        full_ct = load_split("ciphertext full", mode, load_ct, [(2, k, n)], [], first_moduli)
+        check(torch.equal(full_ct.data, full_cts[0].data), f"wire: the full ciphertext ({mode}) differs")
+    print(f"[wire] load ms per object ({card_line}; host clock to a synchronize; split into decompression, seed "
+          f"expansion, host-to-device copy, valcheck and the rest, parsing and host copies): " + "; ".join(
+              f"{label} {mode}: {v['load_ms']:.1f} (decompress {v['decompress_ms']:.1f}, expand {v['expand_ms']:.1f}, "
+              f"h2d {v['h2d_ms']:.1f}, parse {v['parse_ms']:.1f}) + valcheck {v['valcheck_ms']:.1f}"
+              for (label, mode), v in loads.items()))
+
+    # every loaded object equals the object that was saved
+    srv = server["none"]
+    for mode in modes:
+        s = server[mode]
+        for name, keys in (("relin key", rk), ("Galois key", gk)):
+            check(all((a is None) == (b is None) and (a is None or (torch.equal(a["c0"], b["c0"])
+                                                                     and torch.equal(a["c1"], b["c1"])))
+                      for a, b in zip(s[name].keys, keys.keys)) and len(s[name].keys) == len(keys.keys),
+                  f"wire: the loaded {name} ({mode}) differs from the saved one")
+        check(s["plaintext"] == pw and s["ciphertext"].seed_info is None
+              and torch.equal(s["ciphertext"].data, full_cts[0].data), f"wire: loaded objects ({mode}) differ")
+    check(sparms.parms_id == parms.parms_id and sctx.first_parms_id == cctx.first_parms_id,
+          "wire: the server's parameters differ from the client's")
+    srk, sgk, spt = srv["relin key"], srv["Galois key"], srv["plaintext"]
+    ev, bev, ev_fast = Evaluator(sctx), BatchEvaluator(sctx), Evaluator(sctx, throw_on_transparent=False)
+
+    def serve_request(blob_in, evaluator):
+        """Bytes in to bytes out: load, check, serve, save."""
+        ct, _ = S.ciphertext_load(blob_in, sctx)
+        check(V.is_valid_for(ct, sctx), "wire: a request fails valcheck.is_valid_for")
+        return S.ciphertext_save(step(evaluator, ct, spt, sgk, srk), S.COMPR_NONE)
+
+    def serve_all(evaluator, mode="none"):
+        return [serve_request(b, evaluator) for b in request[mode]["cts"]]
+
+    # in memory: the client's own objects, served by an evaluator of the client's context
+    mev = Evaluator(cctx)
+    memory = [step(mev, c, pw, gk, rk) for c in full_cts]
+    replies, wire_launches = counted(lambda: serve_all(ev))
+    check(wire_launches == {"ntt": 8 * requests, "switch_key": 2 * requests, "four_step_stage": 0},
+          f"wire: {requests} requests over the wire launched {wire_launches}")
+    one, one_launches = counted(lambda: step(ev, S.ciphertext_load(request["none"]["cts"][0], sctx)[0], spt, sgk, srk))
+    check(one_launches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0},
+          f"wire: one request launched {one_launches}; expected 8 of kernel A, 2 of kernel B, 0 stage")
+    for r in range(requests):
+        check(replies[r] == S.ciphertext_save(memory[r], S.COMPR_NONE),
+              f"wire: reply {r} differs from serving the in-memory objects")
+    for mode in modes:
+        if mode != "none":
+            check(serve_all(ev, mode) == replies, f"wire: the {mode} request gives other replies")
+    batch_in = CiphertextBatch.from_ciphertexts([S.ciphertext_load(b, sctx)[0] for b in request["none"]["cts"]])
+    batch_out, batch_launches = counted(lambda: step(bev, batch_in, spt, sgk, srk))
+    check(batch_launches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0},
+          f"wire: the batch launched {batch_launches}; expected 8 of kernel A, 2 of kernel B, 0 stage")
+    batch_replies = [S.ciphertext_save(batch_out[r], S.COMPR_NONE) for r in range(requests)]
+    check(batch_replies == replies, "wire: the batch's replies differ from the sequential ones")
+    fast = serve_all(ev_fast)
+    check(fast == replies, "wire: throw_on_transparent=False gives other replies")
+
+    # timings: bytes in to bytes out against the step on in-memory objects
+    in_memory = [S.ciphertext_load(b, sctx)[0] for b in request["none"]["cts"]]
+    runs = {"wire": [], "wire, throw_on_transparent=False": [], "in memory": [], "in memory, batch": []}
+    for _ in range(3):
+        runs["wire"].append(timed(lambda: serve_all(ev))[1] / requests)
+        runs["wire, throw_on_transparent=False"].append(timed(lambda: serve_all(ev_fast))[1] / requests)
+        runs["in memory"].append(timed(lambda: [step(ev, c, spt, sgk, srk) for c in in_memory])[1] / requests)
+        runs["in memory, batch"].append(timed(lambda: step(bev, batch_in, spt, sgk, srk))[1] / requests)
+    part = {"load": [], "valcheck": [], "step": [], "save": []}
+    for b in request["none"]["cts"]:
+        ct, ms = timed(lambda: S.ciphertext_load(b, sctx)[0])
+        part["load"].append(ms)
+        part["valcheck"].append(timed(lambda: V.is_valid_for(ct, sctx))[1])
+        out, ms = timed(lambda: step(ev, ct, spt, sgk, srk))
+        part["step"].append(ms)
+        part["save"].append(timed(lambda: S.ciphertext_save(out, S.COMPR_NONE))[1])
+    print(f"[wire] (b) {requests} requests loaded (seeded, none{', zlib, zstd' if S._HAS_ZSTD else ', zlib'}), "
+          f"checked with is_valid_for, served through multiply_plain -> rotate_vector(1) -> multiply -> relinearize "
+          f"-> rescale_to_next and saved: replies equal to serving the client's in-memory objects, in every mode; "
+          f"the batch of {requests} through BatchEvaluator equal to the sequential replies; kernel A 8 launches and "
+          f"kernel B 2 per request and per batch, no stage launch")
+    print(f"[wire] ms per request ({card_line}; host clock to a synchronize, median of 3 runs of {requests}): "
+          + ", ".join(f"{label} {_median(v):.3f} (runs {', '.join(f'{x:.3f}' for x in v)})" for label, v in runs.items())
+          + "; one request's parts (median of the 4): " + ", ".join(f"{p} {_median(v):.3f}" for p, v in part.items()))
+
+    # the client again: the replies decrypted one by one and as a batch
+    dec = Decryptor(cctx, sk)
+    reply_cts = [S.ciphertext_load(r, cctx)[0] for r in replies]
+    plains = [dec.decrypt(c) for c in reply_cts]
+    reply_batch = CiphertextBatch.from_ciphertexts(reply_cts)
+    batch_plains = dec.decrypt_batch(reply_batch)
+    for r in range(requests):
+        check(torch.equal(plains[r].rns_data, batch_plains[r].rns_data), f"wire: decrypt_batch differs at {r}")
+    worst = 0.0
+    for r, v in enumerate(vs):
+        got = enc.decode(plains[r])
+        check(got.shape == (n // 2,) and np.isfinite(got).all(), f"wire: decoded reply {r} is malformed")
+        err = float(np.max(np.abs(got.real - np.roll(v * w, -1) * v)))
+        check(err < 1e-3, f"wire: decoded reply {r} is {err} from np.roll(v*w, -1) * v")
+        worst = max(worst, err)
+    dec_ms = [timed(lambda: [dec.decrypt(c) for c in reply_cts])[1] for _ in range(3)]
+    batch_ms = [timed(lambda: dec.decrypt_batch(reply_batch))[1] for _ in range(3)]
+    print(f"[wire] (b) the client loads the {requests} replies; decrypt of each equals decrypt_batch of the batch; "
+          f"decoded within {worst:.3e} of np.roll(v*w, -1) * v (bound 1e-3); {requests} decrypt calls "
+          f"{_median(dec_ms):.3f} ms, decrypt_batch {_median(batch_ms):.3f} ms ({card_line}, median of 3)")
+    print(f"[wire] (c) Evaluator(ctx, throw_on_transparent=False): the same reply bytes; "
+          f"{_median(runs['wire, throw_on_transparent=False']):.3f} ms per request over the wire against "
+          f"{_median(runs['wire']):.3f} with the check (an observation, not a claim)")
+    del cctx, sctx, server, srv, srk, sgk, rk, gk, kg, mev, memory, batch_in, batch_out, in_memory
+    torch.cuda.empty_cache()
+    timing = {"ms_per_request_wire": _median(runs["wire"]), "ms_per_request_in_memory": _median(runs["in memory"])}
+    return {name: {"launches_per_request": one_launches[name], "launches_per_batch": batch_launches[name],
+                   "seal_blob_launches": blob_launches[name], **timing} for name in ("ntt", "switch_key")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1892,18 +2369,23 @@ def main():
     bgv = bgv_phase(gen)
     print(f"[bgv] phase 12 in {time.time() - t_bgv:.1f} s")
 
+    # ---- phase 13: the wire path -------------------------------------------
+    t_wire = time.time()
+    wire = wire_phase(card_line)
+    print(f"[wire] phase 13 in {time.time() - t_wire:.1f} s")
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:227", "launches": launches["ntt"],
          "max_abs_err": max_err["ntt"], "ms": ntt_totals["ms"], "plain_ms": ntt_totals["plain_ms"],
-         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"], "bgv": bgv["ntt"]},
+         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"], "bgv": bgv["ntt"], "wire": wire["ntt"]},
         {"name": "switch_key", "route": "cuda", "source": "seal_tpu_torch/csrc/switch_key.cu",
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
          "max_abs_err": max(max_err["switch_key"], sk_medium["max_abs_err"]), "ms": sk_main["ms"],
          "plain_ms": sk_main["plain_ms"], "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"],
          "library_ms": None, "n32768": sk_medium, "linear_layer": linear, "bfv": bfv["switch_key"],
-         "bgv": bgv["switch_key"]},
+         "bgv": bgv["switch_key"], "wire": wire["switch_key"]},
         {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
@@ -1926,7 +2408,8 @@ def main():
           f"diagonal), their launches per request and per batch; the bgv objects: phase 12's calls of one BGV "
           f"request at both sizes (A: its eight transforms summed; B: its two calls with the diagonal), their "
           f"launches per request and per batch, and the profiler's device time of each kernel per request in the "
-          f"sequential and the batched run")
+          f"sequential and the batched run; the wire objects: phase 13's launches per served request and per batch, "
+          f"on SEAL's blobs, and its ms per request over the wire and in memory")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -164,6 +164,16 @@ class CKKSEncoder:
         p.rns_data = _c([rounded % q for q in cd.coeff_modulus_values], self.context.device).expand(-1, self.n).contiguous()
         return p
 
+    def encode_int(self, value: int, parms_id: ParmsId = None) -> Plaintext:
+        """An integer in every slot, exactly, at scale 1 (ckks.cpp:232-287):
+        the constant polynomial ``value``, whose NTT is itself."""
+        cd = self._level(self.context.first_parms_id if parms_id is None else parms_id)
+        p = Plaintext()
+        p.parms_id = cd.parms_id
+        p.scale = 1.0
+        p.rns_data = _c([value % q for q in cd.coeff_modulus_values], self.context.device).expand(-1, self.n).contiguous()
+        return p
+
     # -- decode ------------------------------------------------------------
     def decode(self, plain: Plaintext) -> np.ndarray:
         """NTT-form plaintext -> the N/2 complex slot values (ckks.h:683-787)."""

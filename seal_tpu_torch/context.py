@@ -304,6 +304,9 @@ class SealContext:
     def parameter_error_name(self) -> str:
         return self.key_context_data().qualifiers.parameter_error.name
 
+    def parameter_error_message(self) -> str:
+        return self.key_context_data().qualifiers.parameter_error_message
+
     # -- validation (context.cpp:142-460) ---------------------------------
     def _validate(self, parms: EncryptionParameters) -> ContextData:
         cd = ContextData(parms, self.device)

@@ -2,8 +2,12 @@
 
 The JAX package holds a u64 array as a (lo, hi) pair of uint32 arrays;
 ``seal_tpu.ops.u64.to_np_u64`` joins it into one numpy uint64 array, and
-the functions here turn such arrays into the port's objects and back.  The
-port itself never imports the JAX package.
+the functions here turn such arrays into the port's objects and back.  A
+seed (the ``seed_info`` of a seeded ciphertext, each of a key's ``seeds``)
+travels as its settings, a (PRNG type, 8 seed words) pair, or as any object
+with ``prng_type`` and ``seed`` attributes, such as the JAX package's
+``UniformRandomGeneratorInfo``.  The port itself never imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 from .data import Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, PublicKey, RelinKeys, SecretKey
 from .ntt_tables import u64_tensor
 from .params import ParmsId
-from .random import PRNGType, UniformRandomGeneratorFactory
+from .random import PRNGType, UniformRandomGeneratorFactory, UniformRandomGeneratorInfo
 
 
 def u64_from_numpy(array: np.ndarray, device) -> torch.Tensor:
@@ -31,13 +35,25 @@ def u64_to_numpy(tensor: torch.Tensor) -> np.ndarray:
     return tensor.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
+def seed_info_from_settings(seed) -> Optional[UniformRandomGeneratorInfo]:
+    """A (PRNG type, seed words) pair, or an object with ``prng_type`` and
+    ``seed``, as the port's UniformRandomGeneratorInfo; None stays None."""
+    if seed is None:
+        return None
+    prng_type, words = (seed.prng_type, seed.seed) if hasattr(seed, "seed") else seed
+    return UniformRandomGeneratorInfo(PRNGType(int(prng_type)), tuple(int(w) for w in words))
+
+
 def ciphertext_from_numpy(data: np.ndarray, parms_id: ParmsId, is_ntt_form: bool, scale: float,
-                          device, correction_factor: int = 1) -> Ciphertext:
-    """(size, k, n) uint64 data plus metadata -> Ciphertext on ``device``."""
+                          device, correction_factor: int = 1, seed_info=None) -> Ciphertext:
+    """(size, k, n) uint64 data plus metadata -> Ciphertext on ``device``;
+    ``seed_info`` (see :func:`seed_info_from_settings`) for a seeded one."""
     if np.ndim(data) != 3:
         raise ValueError("ciphertext data must have shape (size, k, n)")
-    return Ciphertext(u64_from_numpy(data, device), tuple(parms_id), bool(is_ntt_form),
-                      float(scale), int(correction_factor))
+    ct = Ciphertext(u64_from_numpy(data, device), tuple(parms_id), bool(is_ntt_form),
+                    float(scale), int(correction_factor))
+    ct.seed_info = seed_info_from_settings(seed_info)
+    return ct
 
 
 def ciphertext_to_numpy(ct: Ciphertext) -> Tuple[np.ndarray, ParmsId, bool, float, int]:
@@ -49,17 +65,18 @@ def ciphertext_to_numpy(ct: Ciphertext) -> Tuple[np.ndarray, ParmsId, bool, floa
 KeyList = List[Optional[Tuple[np.ndarray, np.ndarray]]]
 
 
-def _kswitch_keys_from_numpy(out: KSwitchKeys, keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
-                             parms_id: ParmsId, device) -> KSwitchKeys:
+def _kswitch_keys_from_numpy(out: KSwitchKeys, keys: Sequence, parms_id: ParmsId, device) -> KSwitchKeys:
     out.parms_id = tuple(parms_id)
     for entry in keys:
         if entry is None:
             out.keys.append(None)
             continue
-        c0, c1 = entry
+        c0, c1, *seeds = entry
         if np.shape(c0) != np.shape(c1) or np.ndim(c0) != 3:
             raise ValueError("key components must both have shape (D, k_key, n)")
-        out.keys.append({"c0": u64_from_numpy(c0, device), "c1": u64_from_numpy(c1, device)})
+        seeds = seeds[0] if seeds else None
+        out.keys.append({"c0": u64_from_numpy(c0, device), "c1": u64_from_numpy(c1, device),
+                         "seeds": None if seeds is None else [seed_info_from_settings(x) for x in seeds]})
     return out
 
 
@@ -67,9 +84,9 @@ def _kswitch_keys_to_numpy(keys: KSwitchKeys) -> Tuple[KeyList, ParmsId]:
     return [None if k is None else (u64_to_numpy(k["c0"]), u64_to_numpy(k["c1"])) for k in keys.keys], keys.parms_id
 
 
-def relin_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
-                          parms_id: ParmsId, device) -> RelinKeys:
-    """Per key power (index = power - 2): None or (c0, c1), each (D, k_key, n)."""
+def relin_keys_from_numpy(keys: Sequence, parms_id: ParmsId, device) -> RelinKeys:
+    """Per key power (index = power - 2): None or (c0, c1), each (D, k_key,
+    n), or (c0, c1, seeds) with one seed per row for a seeded key."""
     return _kswitch_keys_from_numpy(RelinKeys(), keys, parms_id, device)
 
 
@@ -77,10 +94,10 @@ def relin_keys_to_numpy(rk: RelinKeys) -> Tuple[KeyList, ParmsId]:
     return _kswitch_keys_to_numpy(rk)
 
 
-def galois_keys_from_numpy(keys: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
-                           parms_id: ParmsId, device) -> GaloisKeys:
+def galois_keys_from_numpy(keys: Sequence, parms_id: ParmsId, device) -> GaloisKeys:
     """Per Galois element (index = (elt - 1) / 2, n entries as the wire
-    format has them): None or (c0, c1), each (D, k_key, n)."""
+    format has them): None, (c0, c1) or (c0, c1, seeds), as for
+    :func:`relin_keys_from_numpy`."""
     return _kswitch_keys_from_numpy(GaloisKeys(), keys, parms_id, device)
 
 

@@ -36,13 +36,63 @@ class Plaintext:
         p.coeff_data = np.asarray(coeffs, dtype=np.uint64).copy()
         return p
 
+    @classmethod
+    def from_hex(cls, hex_poly: str) -> "Plaintext":
+        """Parse SEAL's hex-polynomial format, e.g. '3x^2 + 1x^1 + 2'."""
+        terms = {}
+        s = hex_poly.replace(" ", "")
+        if not s:
+            return cls(0)
+        for term in s.split("+"):
+            if "x^" in term:
+                c, e = term.split("x^")
+                coeff, exp = (int(c, 16) if c else 1), int(e)
+            elif term.endswith("x"):
+                coeff, exp = (int(term[:-1], 16) if term[:-1] else 1), 1
+            else:
+                coeff, exp = int(term, 16), 0
+            terms[exp] = terms.get(exp, 0) + coeff
+        data = np.zeros(max(terms) + 1, dtype=np.uint64)
+        for e, c in terms.items():
+            data[e] = c
+        return cls.from_coeffs(data)
+
     @property
     def is_ntt_form(self) -> bool:
         return self.parms_id != PARMS_ID_ZERO
 
+    @property
+    def coeff_count(self) -> int:
+        return int(self.rns_data.numel()) if self.is_ntt_form else len(self.coeff_data)
+
     def significant_coeff_count(self) -> int:
         nz = np.nonzero(self.coeff_data)[0]
         return int(nz[-1]) + 1 if len(nz) else 0
+
+    def to_string(self) -> str:
+        """SEAL's hex-polynomial format (plaintext.cpp to_string)."""
+        if self.is_ntt_form:
+            raise ValueError("cannot convert NTT-form plaintext to string")
+        nz = np.nonzero(self.coeff_data)[0]
+        if len(nz) == 0:
+            return "0"
+        parts = []
+        for e in reversed(nz):
+            c = format(int(self.coeff_data[e]), "X")
+            parts.append(c if e == 0 else f"{c}x^{e}")
+        return " + ".join(parts)
+
+    def __eq__(self, other):
+        """Coefficient plaintexts compare up to trailing zeros; NTT-form
+        ones by level and data."""
+        if not isinstance(other, Plaintext):
+            return NotImplemented
+        if self.is_ntt_form != other.is_ntt_form:
+            return False
+        if self.is_ntt_form:
+            return self.parms_id == other.parms_id and torch.equal(self.rns_data.cpu(), other.rns_data.cpu())
+        asig, bsig = self.significant_coeff_count(), other.significant_coeff_count()
+        return asig == bsig and bool((self.coeff_data[:asig] == other.coeff_data[:bsig]).all())
 
     def copy(self) -> "Plaintext":
         p = Plaintext()
@@ -80,8 +130,17 @@ class Ciphertext:
     def coeff_modulus_size(self) -> int:
         return 0 if self.data is None else int(self.data.shape[1])
 
+    @property
+    def poly_modulus_degree(self) -> int:
+        return 0 if self.data is None else int(self.data.shape[2])
+
     def poly(self, j: int) -> torch.Tensor:
         return self.data[j]
+
+    def to_np(self) -> np.ndarray:
+        """The data as a (size, k, n) numpy uint64 array, read from the device."""
+        data = self.data.unshard() if hasattr(self.data, "unshard") else self.data
+        return data.detach().cpu().contiguous().numpy().view(np.uint64)
 
     def copy(self) -> "Ciphertext":
         c = Ciphertext(self.data, self.parms_id, self.is_ntt_form, self.scale, self.correction_factor)
@@ -107,6 +166,14 @@ class SecretKey:
         self.data = data
         self.parms_id = parms_id
 
+    def zeroize(self):
+        """Best-effort erasure (the reference's clear_on_destruction): the
+        key drops its tensor for zeros of the same shape and device, and its
+        level.  Copies the caller made are the caller's to erase."""
+        if self.data is not None:
+            self.data = torch.zeros_like(self.data)
+        self.parms_id = PARMS_ID_ZERO
+
 
 class PublicKey:
     """Encryption of zero in NTT form at the key level (``publickey.h:268``)."""
@@ -130,6 +197,10 @@ class KSwitchKeys:
     def __init__(self):
         self.parms_id: ParmsId = PARMS_ID_ZERO
         self.keys: List[Optional[dict]] = []
+
+    def size(self) -> int:
+        """The number of keys present."""
+        return sum(1 for k in self.keys if k is not None)
 
 
 class RelinKeys(KSwitchKeys):

@@ -9,6 +9,8 @@ scale-and-round (``ops/rns.decrypt_scale_and_round``) to a coefficient
 plaintext; BGV's is inverse-transformed, converted exactly to t
 (``ops/rns.decrypt_modt``) and divided by the correction factor mod t.
 ``invariant_noise_budget`` (``decryptor.cpp:409-486``) serves BFV and BGV.
+``decrypt_batch`` runs the dot product and the tail once over a
+``CiphertextBatch``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,17 @@ from .ops import ntt as NTT
 from .ops import rns as R
 from .ops import u64 as U
 from .ops.rns import _cshoup
+
+
+def _divide_correction(coeffs: np.ndarray, factor: int, tv: int) -> np.ndarray:
+    """BGV's coefficients mod t divided by the correction factor, on the host."""
+    if factor == 1:
+        return coeffs
+    fix = numth.invert_mod(factor, tv)
+    if tv.bit_length() + fix.bit_length() <= 64:
+        return coeffs * np.uint64(fix) % np.uint64(tv)
+    # the product could pass 2^64: Python ints
+    return np.array([int(c) * fix % tv for c in coeffs], dtype=np.uint64)
 
 
 def _trimmed(coeffs: np.ndarray) -> Plaintext:
@@ -56,16 +69,23 @@ class Decryptor:
         cd = self.context.get_context_data(ct.parms_id)
         if cd is None:
             raise ValueError("encrypted is not valid for encryption parameters")
+        return self._phase_of(cd, ct.data, ct.is_ntt_form)
+
+    def _phase_of(self, cd, data: torch.Tensor, is_ntt_form: bool) -> torch.Tensor:
+        """The phase of (..., size, k, n) ``data``: one set of launches for
+        any number of leading (batch) axes."""
         t = cd.limb_tables()
-        k = ct.coeff_modulus_size
-        rest = ct.data[1:] if ct.is_ntt_form else NTT.forward(ct.data[1:].contiguous(), t, lazy=True)
+        size, k = data.shape[-3], data.shape[-2]
+        rest = data[..., 1:, :, :]
+        if not is_ntt_form:
+            rest = NTT.forward(rest.contiguous(), t, lazy=True)
         acc = None
-        for j in range(1, ct.size):
-            prod = U.mul_mod(rest[j - 1], self._secret_key_power(j)[:k], t.q, t.ratio_lo, t.ratio_hi)
+        for j in range(1, size):
+            prod = U.mul_mod(rest[..., j - 1, :, :], self._secret_key_power(j)[:k], t.q, t.ratio_lo, t.ratio_hi)
             acc = prod if acc is None else U.add_mod(acc, prod, t.q)
-        if not ct.is_ntt_form:
+        if not is_ntt_form:
             acc = NTT.inverse(acc, t)
-        return U.add_mod(ct.data[0], acc, t.q)
+        return U.add_mod(data[..., 0, :, :], acc, t.q)
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
         if ct.size < 2:
@@ -98,15 +118,41 @@ class Decryptor:
         cd = self.context.get_context_data(ct.parms_id)
         phase = NTT.inverse(self._phase(ct), cd.limb_tables())
         coeffs = u64_to_numpy(R.decrypt_modt(phase, cd.rns_tool))[0]
+        return _trimmed(_divide_correction(coeffs, ct.correction_factor, cd.parms.plain_modulus.value))
+
+    def decrypt_batch(self, batch) -> List[Plaintext]:
+        """Decrypt a ``parallel.batch.CiphertextBatch``: the dot product and
+        the scheme's tail once over the whole batch, one device-to-host read
+        for BFV and BGV (CKKS plaintexts stay on the device).  Equal to
+        ``decrypt`` of every ``batch[i]``."""
+        if batch.size < 2:
+            raise ValueError("encrypted is empty")
+        scheme = self.context.first_context_data().parms.scheme
+        cd = self.context.get_context_data(batch.parms_id)
+        if cd is None:
+            raise ValueError("encrypted is not valid for encryption parameters")
+        if scheme == SchemeType.BFV and batch.is_ntt_form:
+            raise ValueError("encrypted cannot be in NTT form")
+        if scheme in (SchemeType.CKKS, SchemeType.BGV) and not batch.is_ntt_form:
+            raise ValueError("encrypted must be in NTT form")
+        phase = self._phase_of(cd, batch.unshard().data, batch.is_ntt_form)      # (B, k, n)
+        if scheme == SchemeType.CKKS:
+            plains = []
+            for i in range(batch.batch_size):
+                p = Plaintext()
+                p.parms_id = batch.parms_id
+                p.scale = batch.scale
+                p.rns_data = phase[i]
+                plains.append(p)
+            return plains
+        if scheme == SchemeType.BFV:
+            out = R.decrypt_scale_and_round(phase, cd.rns_tool)
+        else:
+            out = R.decrypt_modt(NTT.inverse(phase, cd.limb_tables()), cd.rns_tool)
+        coeffs = u64_to_numpy(out)[:, 0, :]                                           # (B, n)
         tv = cd.parms.plain_modulus.value
-        if ct.correction_factor != 1:
-            fix = numth.invert_mod(ct.correction_factor, tv)
-            if tv.bit_length() + fix.bit_length() <= 64:
-                coeffs = coeffs * np.uint64(fix) % np.uint64(tv)
-            else:
-                # the product could pass 2^64: Python ints
-                coeffs = np.array([int(c) * fix % tv for c in coeffs], dtype=np.uint64)
-        return _trimmed(coeffs)
+        factor = batch.correction_factor if scheme == SchemeType.BGV else 1
+        return [_trimmed(_divide_correction(c, factor, tv)) for c in coeffs]
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """Remaining noise budget in bits (decryptor.cpp:409-486): the

@@ -97,6 +97,12 @@ class Encryptor:
         self._public_key = public_key
         self._secret_key = secret_key
 
+    def set_public_key(self, pk: PublicKey):
+        self._public_key = pk
+
+    def set_secret_key(self, sk: SecretKey):
+        self._secret_key = sk
+
     # -- zero encryptions --------------------------------------------------
     def encrypt_zero(self, parms_id: Optional[ParmsId] = None) -> Ciphertext:
         return self._encrypt_zero_internal(parms_id, is_asymmetric=True, save_seed=False)

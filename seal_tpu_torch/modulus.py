@@ -13,7 +13,8 @@ from __future__ import annotations
 import enum
 import math
 from dataclasses import dataclass
-from typing import List, Sequence
+from functools import reduce
+from typing import Iterable, List, Sequence
 
 from . import numth
 from .default_params import (
@@ -36,6 +37,8 @@ COEFF_MOD_COUNT_MAX = 256
 COEFF_MOD_COUNT_MIN = 1
 POLY_MOD_DEGREE_MAX = 131072
 POLY_MOD_DEGREE_MIN = 2
+CIPHERTEXT_SIZE_MAX = 16
+CIPHERTEXT_SIZE_MIN = 2
 
 
 class SecurityLevel(enum.IntEnum):
@@ -53,6 +56,9 @@ _HE_STD_PARMS = {
     SecurityLevel.TC192: {1024: 19, 2048: 37, 4096: 75, 8192: 152, 16384: 305, 32768: 611},
     SecurityLevel.TC256: {1024: 14, 2048: 29, 4096: 58, 8192: 118, 16384: 237, 32768: 476},
 }
+
+HE_STD_ERROR_STD_DEV = 3.2
+NOISE_MAX_DEVIATION = HE_STD_ERROR_STD_DEV * 6  # util/globals.h noise_max_deviation
 
 
 @dataclass(frozen=True)
@@ -85,6 +91,11 @@ class Modulus:
     @property
     def is_prime(self) -> bool:
         return numth.is_prime(self.value)
+
+    def reduce(self, value: int) -> int:
+        if self.value == 0:
+            raise ValueError("cannot reduce modulo zero")
+        return value % self.value
 
 
 class CoeffModulus:
@@ -152,3 +163,8 @@ class PlainModulus:
     @staticmethod
     def batching_many(poly_modulus_degree: int, bit_sizes: Sequence[int]) -> List[Modulus]:
         return CoeffModulus.create(poly_modulus_degree, bit_sizes)
+
+
+def product(moduli: Iterable[Modulus]) -> int:
+    """The product of the moduli's values (1 for none)."""
+    return reduce(lambda a, m: a * m.value, moduli, 1)

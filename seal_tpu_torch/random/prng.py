@@ -127,6 +127,10 @@ class UniformRandomGeneratorFactory:
         self.prng_type = prng_type
         self.default_seed = tuple(default_seed) if default_seed is not None else None
 
+    @property
+    def use_random_seed(self) -> bool:
+        return self.default_seed is None
+
     def create(self, seed: Optional[Tuple[int, ...]] = None) -> _BufferedPRNG:
         if seed is None:
             seed = self.default_seed if self.default_seed is not None else random_seed()
@@ -145,6 +149,25 @@ class UniformRandomGeneratorInfo:
     def __init__(self, prng_type: PRNGType = PRNGType.UNKNOWN, seed: Tuple[int, ...] = (0,) * 8):
         self.prng_type = PRNGType(prng_type)
         self.seed = tuple(int(s) & 0xFFFFFFFFFFFFFFFF for s in seed)
+
+    def make_prng(self) -> Optional[_BufferedPRNG]:
+        """The generator of this type and seed; None for an unknown type."""
+        if self.prng_type == PRNGType.BLAKE2XB:
+            return Blake2xbPRNG(self.seed)
+        if self.prng_type == PRNGType.SHAKE256:
+            return Shake256PRNG(self.seed)
+        return None
+
+    def save_members(self) -> bytes:
+        """u8 type, then the 8 seed words (little-endian)."""
+        return struct.pack("<B8Q", int(self.prng_type), *self.seed)
+
+    @classmethod
+    def load_members(cls, data: bytes) -> "UniformRandomGeneratorInfo":
+        (ptype,) = struct.unpack_from("<B", data, 0)
+        return cls(PRNGType(ptype), struct.unpack_from("<8Q", data, 1))
+
+    SAVE_SIZE_RAW = 1 + PRNG_SEED_BYTE_COUNT
 
     def __eq__(self, other):
         return (

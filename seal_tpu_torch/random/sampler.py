@@ -14,10 +14,14 @@ Port of ``seal_tpu/random/sampler.py`` (counterpart of
 * ``sample_poly_normal``: the optional clipped Gaussian (sigma 3.2),
   Box-Muller over stream doubles.
 
-All return uint64 arrays of shape (k, n): the sampled small value in every
-RNS limb, negatives as q_i - |v|.  The legacy SEAL 3.4/3.5 uniform samplers
-serve the wire format and arrive with serialization (ROADMAP.md queue 1,
-item 11).
+* ``sample_poly_uniform_seal_3_4`` / ``_3_5``: the uniform samplers of
+  Microsoft SEAL 3.4 and 3.5 (rlwe.cpp:134-188), which expand the seeded
+  ciphertexts of blobs of those versions (``serialization.ciphertext_load``):
+  two 32-bit words per attempt, a rejected attempt redrawn at once.
+
+The noise and secret samplers return uint64 arrays of shape (k, n): the
+sampled small value in every RNS limb, negatives as q_i - |v|; the uniform
+ones a residue per limb.
 """
 
 from __future__ import annotations
@@ -98,6 +102,43 @@ def sample_poly_uniform(prng, n: int, moduli: Sequence[int]) -> np.ndarray:
             row[c] = r
         np.mod(row, np.uint64(q), out=row)
     return dest
+
+
+def _sample_poly_uniform_legacy(prng, n: int, moduli: Sequence[int], shift_a: int, shift_b: int,
+                                max_random: int) -> np.ndarray:
+    """The SEAL 3.4 / 3.5 uniform samplers' common engine (rlwe.cpp:134-188).
+
+    An attempt is two 32-bit stream words a, b combined as
+    ``(a << shift_a) | (b >> shift_b)``; a rejected attempt is redrawn for
+    the same coefficient before the scan moves on, so the accepted attempts,
+    in stream order, are the coefficients in order.  Attempts are drawn in
+    batches and the accepted ones kept until a limb has n: each attempt is 8
+    stream bytes, in the reference's order.
+    """
+    dest = np.zeros((len(moduli), n), dtype=np.uint64)
+    for j, q in enumerate(moduli):
+        max_multiple = max_random - (max_random % q) - 1
+        accepted = np.zeros(0, dtype=np.uint64)
+        while len(accepted) < n:
+            words = np.frombuffer(prng.generate(8 * (n - len(accepted))), dtype="<u4").astype(np.uint64)
+            rand = (words[0::2] << np.uint64(shift_a)) | (words[1::2] >> np.uint64(shift_b))
+            accepted = np.concatenate([accepted, rand[rand < np.uint64(max_multiple)]])
+        dest[j] = accepted % np.uint64(q)
+    return dest
+
+
+def sample_poly_uniform_seal_3_4(prng, n: int, moduli: Sequence[int]) -> np.ndarray:
+    """SEAL 3.4: (engine() << 31) | (engine() >> 1), a 63-bit range (rlwe.cpp:137-163)."""
+    return _sample_poly_uniform_legacy(prng, n, moduli, 31, 1, (1 << 63) - 1)
+
+
+def sample_poly_uniform_seal_3_5(prng, n: int, moduli: Sequence[int]) -> np.ndarray:
+    """SEAL 3.5: (engine() << 32) | engine(), the full 64-bit range (rlwe.cpp:165-188)."""
+    return _sample_poly_uniform_legacy(prng, n, moduli, 32, 0, (1 << 64) - 1)
+
+
+# The default noise sampler (the reference's SEAL_NOISE_SAMPLER: CBD).
+sample_poly_noise = sample_poly_cbd
 
 
 def noise_sampler_for(parms):

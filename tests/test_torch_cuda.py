@@ -5,15 +5,24 @@ card (where JAX is absent, so the suite's conftest is left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The other tests check what the kernel wrappers refuse, and run anywhere.
-Every comparison is exact equality of reduced residues.
+The wire path's tests load Microsoft SEAL's blobs onto the card and serve a
+serialized request there, against the bytes the CPU gives.  The other tests
+check what the kernel wrappers refuse, and run anywhere.  Every comparison
+is exact equality of reduced residues.
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
-from seal_tpu_torch import CoeffModulus, EncryptionParameters, SchemeType, SealContext, SecurityLevel
+from seal_tpu_torch import (CKKSEncoder, CoeffModulus, Decryptor, EncryptionParameters, Encryptor, GaloisKeys,
+                            KeyGenerator, PRNGType, RelinKeys, SchemeType, SealContext, SecurityLevel,
+                            UniformRandomGeneratorFactory)
 from seal_tpu_torch import golden
+from seal_tpu_torch import serialization as S
+from seal_tpu_torch import valcheck
 from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, plaintext_from_numpy,
                                     relin_keys_from_numpy, u64_to_numpy)
 from seal_tpu_torch.evaluator import Evaluator
@@ -582,3 +591,86 @@ def test_bgv_request_on_card_gives_bgv_digest(card):
     assert batch.correction_factor == golden.BGV_CORRECTION_FACTOR
     for r in range(2):
         assert torch.equal(batch.data[r], singles[r].data)
+
+
+# -- the wire path ------------------------------------------------------------------------
+
+WIRE = os.path.join(os.path.dirname(__file__), "data", "wire")
+WIRE_SEED = tuple(0x1111111111111111 * (i + 1) for i in range(8))
+
+
+def _wire_blob(name):
+    with open(os.path.join(WIRE, name), "rb") as f:
+        return f.read()
+
+
+def _wire_context(name, device):
+    parms, _ = S.params_load(_wire_blob(f"{name}_parms.bin"))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, WIRE_SEED))
+    return SealContext(parms, True, SecurityLevel.NONE, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["bfv", "bgv"])
+def test_wire_blobs_load_onto_the_card(card, scheme):
+    """Microsoft SEAL's secret key, public key and ciphertexts (full and
+    seeded) load onto the card, pass valcheck and decrypt to the manifest's
+    plaintext."""
+    ctx = _wire_context(scheme, card)
+    sk, _ = S.secret_key_load(_wire_blob(f"{scheme}_sk.bin"), ctx)
+    pk, _ = S.public_key_load(_wire_blob(f"{scheme}_pk.bin"), ctx)
+    assert sk.data.is_cuda and pk.data.data.is_cuda
+    with open(os.path.join(WIRE, "manifest.txt")) as f:
+        want = dict(line.strip().split(" ", 1) for line in f if "_hex" in line)[f"{scheme}_pt_hex"]
+    for name in (f"{scheme}_ct.bin", f"{scheme}_ct_seeded.bin"):
+        ct, _ = S.ciphertext_load(_wire_blob(name), ctx)
+        assert ct.data.is_cuda and valcheck.is_valid_for(ct, ctx)
+        assert Decryptor(ctx, sk).decrypt(ct).to_string() == want
+
+
+def _wire_request(n):
+    """A CKKS client on the CPU: request bytes (parameters, seeded relin and
+    Galois keys, a plaintext, two seeded ciphertexts), and its secret key."""
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(n))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, (5, 6, 7, 8, 9, 10, 11, 12)))
+    ctx = SealContext(parms, True, SecurityLevel.TC128, device="cpu")
+    kg = KeyGenerator(ctx)
+    enc = CKKSEncoder(ctx)
+    rng = np.random.default_rng(3)
+    sym = Encryptor(ctx, secret_key=kg.secret_key)
+    cts = [sym.encrypt_symmetric(enc.encode(rng.uniform(-1, 1, n // 2), golden.LINEAR_SCALE), save_seed=True)
+           for _ in range(2)]
+    return {"params": S.params_save(parms), "rk": S.kswitch_keys_save(kg.create_relin_keys(save_seed=True), ctx),
+            "gk": S.kswitch_keys_save(kg.create_galois_keys_from_steps([1], save_seed=True), ctx),
+            "pt": S.plaintext_save(enc.encode(rng.uniform(-1, 1, n // 2), golden.LINEAR_SCALE)),
+            "cts": [S.ciphertext_save(c) for c in cts]}, kg.secret_key
+
+
+def _wire_serve(request, device):
+    ctx = SealContext(S.params_load(request["params"])[0], True, SecurityLevel.TC128, device=device)
+    rk, _ = S.kswitch_keys_load(request["rk"], ctx, RelinKeys)
+    gk, _ = S.kswitch_keys_load(request["gk"], ctx, GaloisKeys)
+    pt, _ = S.plaintext_load(request["pt"], ctx)
+    cts = [S.ciphertext_load(b, ctx)[0] for b in request["cts"]]
+    assert all(c.data.device.type == torch.device(device).type and valcheck.is_valid_for(c, ctx) for c in cts)
+    ev = Evaluator(ctx)
+    return [S.ciphertext_save(golden.linear_layer_step(ev, c, pt, gk, rk), S.COMPR_NONE) for c in cts], ctx
+
+
+@pytest.mark.cuda
+def test_wire_request_on_the_card_gives_the_cpu_bytes(card):
+    """load -> serve (the linear-layer step at N=8192) -> save on the card
+    gives the CPU's reply bytes; decrypt_batch of the replies on the card
+    equals decrypt of each."""
+    request, sk = _wire_request(8192)
+    cpu_replies, _ = _wire_serve(request, "cpu")
+    card_replies, ctx = _wire_serve(request, card)
+    assert card_replies == cpu_replies
+    sk_card, _ = S.secret_key_load(S.secret_key_save(sk), ctx)
+    dec = Decryptor(ctx, sk_card)
+    replies = [S.ciphertext_load(r, ctx)[0] for r in card_replies]
+    batch = dec.decrypt_batch(CiphertextBatch.from_ciphertexts(replies))
+    for one, plain in zip(replies, batch):
+        assert torch.equal(dec.decrypt(one).rns_data, plain.rns_data)
