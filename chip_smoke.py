@@ -176,6 +176,33 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
    (c) ``Evaluator(ctx, throw_on_transparent=False)``: the same replies,
        its ms per request beside the default's.
 
+14. Device sampling (``ops/blake2_dev.py``: kernel C, the BLAKE2xb stream,
+   ``csrc/blake2xb.cu``; kernel D, the uniform sampler's bulk pass and the
+   CBD noise, ``csrc/sample.cu``), with a BLAKE2XB factory that hands out
+   a distinct seed per draw from seeded numpy, replayed for each path:
+   (a) kernels C and D bit-exact against their plain versions at the calls
+       of one relinearization key at N=8192 ([60, 40, 40, 40, 60]: D=4
+       streams, k_key=5) and at N=32768 (``bfv_default(32768)``: D=15,
+       k_key=16), kernel C's first and last streams equal to the host
+       BLAKE2xb stream; per call, the profiler's mean device operation
+       times the operations a call records (kernel C's root and node
+       passes, the bulk pass's zero fill of its counts and its kernel, the
+       CBD pass), and back-to-back calls by events; plain time and bound;
+   (b) relinearization keys (with and without ``save_seed``, their D
+       public seeds distinct), a Galois key and a seeded public key at
+       N=8192 and N=32768 on the device path equal to the host path
+       (``SEAL_TPU_DEVICE_SAMPLING=0``) byte for byte, 2 launches of kernel
+       C (each two kernels) and 1 of each entry point of kernel D per key,
+       no draw redone on the host; ``create_relin_keys()``,
+       ``create_galois_keys_from_steps([1])`` and one ``encrypt_symmetric``
+       at N=8192, 32768 and 65536 timed on both paths, interleaved;
+   (c) an N=32768 ``encrypt_symmetric(save_seed=True)`` equal to the host
+       path's, saved and loaded through ``serialization.py`` (its c1
+       expanded from the seed on the host) equal to the one in memory.
+   Keygen and symmetric encryption run through kernels C and D in every
+   phase; phases 7, 10(b), 11(d), 12(c) and 13 print their launches in the
+   counted run and fail if either kernel ran no time.
+
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
 error raises before those lines, and the exit code is not 0.  Without a
@@ -210,6 +237,12 @@ OPS_ADD64 = 2
 # One Harvey butterfly: three u64 multiplies (Shoup) and six adds,
 # subtracts and conditional subtractions.
 OPS_BUTTERFLY = 3 * OPS_MUL64 + 6 * OPS_ADD64
+# One BLAKE2b compression: 12 rounds of 8 G steps, each 6 u64 adds, 4 xors
+# and 3 rotations of two funnel shifts (the rotation by 32 is a register
+# swap), then 16 xors into the state; an xor counts as an add.
+OPS_COMPRESS = 12 * 8 * 13 * OPS_ADD64 + 16 * OPS_ADD64
+# the numpy seed of phase 14's factories, which hand out a new seed per draw
+SAMPLING_SEED = 51
 # the seeds of phase 11's and phase 12's slot vectors
 BFV_SLOT_SEED = 11
 BGV_SLOT_SEED = 12
@@ -241,13 +274,14 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, launches=None, attempts=3):
+def device_ms(fn, iters, launches=None, attempts=3, recorded=None):
     """Device time of fn() per call from a profiler run of iters calls.
-    With ``launches`` (the kernels one call launches), the mean duration of
-    the launches the trace recorded times that count, so a launch missing
-    from the trace does not lower it; without, every recorded kernel summed
-    over iters.  A run that recorded no device time is repeated, up to
-    ``attempts`` runs; None if none did."""
+    With ``launches`` (the device operations one call records), the mean
+    duration of the operations the trace recorded times that count, so an
+    operation missing from the trace does not lower it; without, every
+    recorded operation summed over iters.  A run that recorded no device
+    time is repeated, up to ``attempts`` runs; None if none did.  A dict
+    ``recorded`` gets the count of operations the trace held."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -256,6 +290,8 @@ def device_ms(fn, iters, launches=None, attempts=3):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if recorded is not None:
+            recorded["events"] = recorded.get("events", 0) + len(events)
         if events:
             total_us = sum(e.time_range.elapsed_us() for e in events)
             if launches is not None:
@@ -264,13 +300,15 @@ def device_ms(fn, iters, launches=None, attempts=3):
     return None
 
 
-def kernel_ms(fn, iters):
-    """(device ms, events ms) per call of fn(), which launches one kernel:
-    the profiler's device time (the card's work), else, where the profiler
-    recorded none, the events' time; and back-to-back calls timed by CUDA
-    events, which the host paces once its launch path outlasts the kernel."""
+def kernel_ms(fn, iters, launches=1, recorded=None):
+    """(device ms, events ms) per call of fn(), which records ``launches``
+    device operations (a kernel, or for instance two kernels, or a fill and
+    a kernel): the profiler's device time (the card's work), else, where
+    the profiler recorded none, the events' time; and back-to-back calls
+    timed by CUDA events, which the host paces once its launch path
+    outlasts the kernel.  ``recorded``: as for :func:`device_ms`."""
     events = cuda_ms(fn, iters)
-    dev = device_ms(fn, min(iters, 50), launches=1)
+    dev = device_ms(fn, min(iters, 50), launches=launches, recorded=recorded)
     return (events if dev is None else dev), events
 
 
@@ -348,6 +386,31 @@ def profile_run(fn):
     if not events:
         return wall_ms, None, None
     return wall_ms, len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+# launches of kernels C and D (blake2xb, sample_uniform, sample_cbd) in each
+# phase's counted keygen or client run, for the kernels' JSON line
+SAMPLING = {}
+
+
+def sampling_launches():
+    """The launch counters of kernels C and D: (C, D uniform, D CBD)."""
+    from seal_tpu_torch.ops.cuda_blake2 import cbd_lifted_cuda, expand_stream_words_cuda, uniform_bulk_cuda
+    return expand_stream_words_cuda.launches, uniform_bulk_cuda.launches, cbd_lifted_cuda.launches
+
+
+def sampled(phase, fn):
+    """fn()'s result; its launches of kernels C and D go to SAMPLING[phase],
+    and a run that launched either kernel no time fails."""
+    before = sampling_launches()
+    out = fn()
+    counts = tuple(a - b for a, b in zip(sampling_launches(), before))
+    SAMPLING[phase] = {"blake2xb": counts[0], "sample_uniform": counts[1], "sample_cbd": counts[2]}
+    check(min(counts) > 0, f"phase {phase}: keygen and encryption launched kernels C and D (C, D uniform, D CBD) "
+                           f"{counts} times")
+    print(f"[sampling] phase {phase}: kernel C {counts[0]} launches, kernel D {counts[1]} (uniform) and "
+          f"{counts[2]} (CBD)")
+    return out
 
 
 def multi_device_phase(dev, ctx, cts, rk, seq_outs, big_t, gen):
@@ -863,7 +926,7 @@ def linear_phase():
         ref_keys = keygen()
     torch.cuda.synchronize()
     t_k = time.perf_counter()
-    sk, rrk, rgk = keygen()
+    sk, rrk, rgk = sampled("10b", keygen)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t_k
     elt = golden.LINEAR_GALOIS_ELT
@@ -1126,7 +1189,7 @@ def bfv_phase(gen):
 
     with NTT.plain_on_card():
         ref_keys = keygen()
-    sk, pk, rk, gk = keygen()
+    sk, pk, rk, gk = sampled("11d", keygen)
     columns = 2 * n - 1
     for name, got, want in (("secret key", sk.data, ref_keys[0].data), ("public key", pk.data.data, ref_keys[1].data.data),
                             ("relin key", rk.key(2)["c0"], ref_keys[2].key(2)["c0"]),
@@ -1393,7 +1456,7 @@ def bgv_phase(gen):
 
     with NTT.plain_on_card():
         ref_keys = keygen()
-    sk, pk, rk, gk = keygen()
+    sk, pk, rk, gk = sampled("12c", keygen)
     columns = 2 * n - 1
     for name, got, want in (("secret key", sk.data, ref_keys[0].data), ("public key", pk.data.data, ref_keys[1].data.data),
                             ("relin key", rk.key(2)["c0"], ref_keys[2].key(2)["c0"]),
@@ -1891,6 +1954,273 @@ def wire_phase(card_line, n=None):
                    "seal_blob_launches": blob_launches[name], **timing} for name in ("ntt", "switch_key")}
 
 
+def blake2xb_work(S, nwords):
+    """Bytes and 32-bit operations of one kernel-C call: the seeds in and
+    the words out; the compressions the stream needs (the key block, a root
+    per buffer, a node per 8 words)."""
+    compressions = S * (1 + -(-nwords // 512) + -(-nwords // 8))
+    return 8 * S * (8 + nwords), compressions * OPS_COMPRESS
+
+
+def u64_max_abs_err(got, want):
+    """max |got - want| of two equal-shaped integer tensors, int64 ones read
+    as the u64 words they hold."""
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    if a.dtype == np.int64:
+        a, b = a.view(np.uint64), b.view(np.uint64)
+    else:
+        a, b = a.astype(np.int64), b.astype(np.int64)
+    return int(np.max(np.where(a >= b, a - b, b - a))) if a.size else 0
+
+
+def uniform_work(S, k, n):
+    """Kernel D's bulk pass: a word in and a residue out per (stream, limb,
+    coefficient), the counts; a compare, a Barrett reduction (two 64-bit
+    products, two subtractions) per word."""
+    return 16 * S * k * n + 4 * S * k + 24 * k, S * k * n * (3 * OPS_ADD64 + 2 * OPS_MUL64)
+
+
+def cbd_work(S, k, n):
+    """Kernel D's CBD pass: 6 bytes in per coefficient, a residue out per
+    limb; six popcounts, two masks and five adds per coefficient, a select
+    per limb."""
+    return 6 * S * n + 8 * S * k * n + 8 * k, S * n * 13 + S * k * n * OPS_ADD64
+
+
+class host_sampling:
+    """``SEAL_TPU_DEVICE_SAMPLING=0`` inside the block: keygen and
+    encryption sample on the host, as the JAX package then does."""
+
+    def __enter__(self):
+        self.before = os.environ.get("SEAL_TPU_DEVICE_SAMPLING")
+        os.environ["SEAL_TPU_DEVICE_SAMPLING"] = "0"
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            del os.environ["SEAL_TPU_DEVICE_SAMPLING"]
+        else:
+            os.environ["SEAL_TPU_DEVICE_SAMPLING"] = self.before
+
+
+def sampling_phase(gen, device=None, sizes=(8192, 32768, 65536)):
+    """Phase 14: device sampling.  (a) kernels C and D against their plain
+    versions and the host stream at one relinearization key's shapes; (b)
+    keygen on the device path against the host path, byte for byte, with
+    its launches, and the client's keygen and encryption times on both
+    paths; (c) a seeded encryption saved and loaded.  Returns kernels C's
+    and D's numbers by entry point and N, and the client's ms by N and step,
+    for the kernels' JSON line.  ``sizes``: (a) and (b) run at the first two,
+    (b)'s times at all three, (c) at the second."""
+    from seal_tpu_torch import (CKKSEncoder, CoeffModulus, EncryptionParameters, Encryptor, KeyGenerator,
+                                PRNGType, SchemeType, SealContext, SecurityLevel, UniformRandomGeneratorFactory)
+    from seal_tpu_torch import golden, rlwe
+    from seal_tpu_torch import serialization as S
+    from seal_tpu_torch.convert import u64_to_numpy
+    from seal_tpu_torch.ops import blake2_dev as B
+    from seal_tpu_torch.ops.cuda_blake2 import cbd_lifted_cuda, expand_stream_words_cuda, uniform_bulk_cuda
+    from seal_tpu_torch.random.prng import Blake2xbPRNG
+
+    class FreshSeeds(UniformRandomGeneratorFactory):
+        """A BLAKE2XB factory whose create() draws a new seed at each call
+        from numpy, seeded; restart() replays the draws, so that the device
+        and the host path get the same seeds in the same order while a
+        key's D bootstrap streams all differ (a fixed-seed factory makes
+        them equal, and a row taken from the wrong stream could not show)."""
+
+        def __init__(self, seed):
+            super().__init__(PRNGType.BLAKE2XB)
+            self.seed = seed
+            self.restart()
+
+        def restart(self):
+            self.rng = np.random.default_rng([SAMPLING_SEED, self.seed])
+
+        def create(self, seed=None):
+            if seed is None:
+                seed = tuple(int(w) for w in self.rng.integers(0, 1 << 64, size=8, dtype=np.uint64))
+            return super().create(seed)
+
+    t_phase = time.time()
+    fallbacks = rlwe.host_fallbacks
+
+    def context(n):
+        parms = EncryptionParameters(SchemeType.CKKS)
+        parms.set_poly_modulus_degree(n)
+        bits = {8192: golden.GOLDEN_BITS, 65536: golden.LARGE_BITS}.get(n)
+        parms.set_coeff_modulus(CoeffModulus.create(n, list(bits)) if bits else CoeffModulus.bfv_default(n))
+        parms.set_random_generator(FreshSeeds(n))
+        return SealContext(parms, True, SecurityLevel.NONE if bits else SecurityLevel.TC128, device=device)
+
+    contexts = {n: context(n) for n in sizes}
+
+    # ---- (a) kernels C and D at one relinearization key's shapes ---------------
+    kernels = {name: {} for name in ("blake2xb", "sample_uniform", "sample_cbd")}
+    max_err = dict.fromkeys(kernels, 0)
+    # kernels a call records on the card: kernel C's root and node passes,
+    # the zero fill of the bulk pass's counts and its kernel, the CBD pass
+    per_call = {"blake2xb": 2, "sample_uniform": 2, "sample_cbd": 1}
+    for n in sizes[:2]:
+        ctx = contexts[n]
+        moduli = tuple(ctx.key_context_data().coeff_modulus_values)
+        k, D = len(moduli), len(ctx.first_context_data().parms.coeff_modulus)
+        dev = ctx.device
+        seeds = torch.randint(-(1 << 63), (1 << 63) - 1, (D, 8), dtype=torch.int64, device=dev, generator=gen)
+        nw_noise = (64 + 6 * n + 7) // 8
+        nw_uniform = k * n + B.uniform_tail_words(n, moduli)[1]
+        boot = expand_stream_words_cuda(seeds, nw_noise)
+        public = boot[:, :8].contiguous()
+        words = expand_stream_words_cuda(public, nw_uniform)
+        q, mm, rhi = B.uniform_constants(moduli, dev)
+        vals, counts = uniform_bulk_cuda(words, n, q, mm, rhi)
+        noise = cbd_lifted_cuda(boot, n, q, 64)
+        torch.cuda.synchronize()
+        want_vals, want_counts = B.uniform_bulk_plain(words, n, moduli)
+        for name, label, got, want in (
+                ("blake2xb", "kernel C, the noise streams", boot, B.expand_stream_words_plain(seeds, nw_noise)),
+                ("blake2xb", "kernel C, the uniform streams", words, B.expand_stream_words_plain(public, nw_uniform)),
+                ("sample_uniform", "kernel D, the uniform values", vals, want_vals),
+                ("sample_uniform", "kernel D, the rejection counts", counts, want_counts),
+                ("sample_cbd", "kernel D, the CBD noise", noise, B.cbd_lifted_plain(boot, n, moduli, 64))):
+            err = u64_max_abs_err(got, want)
+            check(err == 0 and torch.equal(got, want), f"N={n}: {label} differ from the plain version: max abs "
+                                                       f"err {err}")
+            max_err[name] = max(max_err[name], err)
+        for i in (0, D - 1):
+            for label, sd, got, nw in (("noise", seeds, boot, nw_noise), ("uniform", public, words, nw_uniform)):
+                host = Blake2xbPRNG(tuple(int(w) for w in u64_to_numpy(sd[i]))).generate(8 * nw)
+                check(u64_to_numpy(got[i]).tobytes() == host, f"N={n}: kernel C's {label} stream {i} differs from "
+                                                               f"the host BLAKE2xb stream")
+        calls = {
+            "blake2xb": [(lambda: expand_stream_words_cuda(seeds, nw_noise),
+                          lambda: B.expand_stream_words_plain(seeds, nw_noise), blake2xb_work(D, nw_noise)),
+                         (lambda: expand_stream_words_cuda(public, nw_uniform),
+                          lambda: B.expand_stream_words_plain(public, nw_uniform), blake2xb_work(D, nw_uniform))],
+            "sample_uniform": [(lambda: uniform_bulk_cuda(words, n, q, mm, rhi),
+                                lambda: B.uniform_bulk_plain(words, n, moduli), uniform_work(D, k, n))],
+            "sample_cbd": [(lambda: cbd_lifted_cuda(boot, n, q, 64),
+                            lambda: B.cbd_lifted_plain(boot, n, moduli, 64), cbd_work(D, k, n))],
+        }
+        for name, fns in calls.items():
+            tot = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+            recorded, iters = {}, 100 if n < 32768 else 30
+            for kernel, plain, (nbytes, ops) in fns:
+                ms, events_ms = kernel_ms(kernel, iters, launches=per_call[name], recorded=recorded)
+                tot["ms"] += ms
+                tot["events_ms"] += events_ms
+                tot["plain_ms"] += cuda_ms(plain, 3, warmup=1)
+                tot["bytes"] += nbytes
+                tot["ops"] += ops
+            b, by = bound_ms(tot["bytes"], tot["ops"])
+            kernels[name][n] = {"ms": tot["ms"], "events_ms": tot["events_ms"], "plain_ms": tot["plain_ms"],
+                                "bound_ms": b, "bound_by": by, "calls": len(fns),
+                                "device_ops_per_call": per_call[name]}
+            expected = len(fns) * min(iters, 50) * per_call[name]
+            print(f"[sampling] (a) N={n}, one relinearization key (D={D} streams, k_key={k}): {name} bit-exact, "
+                  f"{len(fns)} call(s) of {per_call[name]} device operation(s) each: kernel "
+                  f"{tot['ms'] * 1e3:.2f} us device time (the mean recorded operation times {per_call[name]}; the "
+                  f"traces held {recorded.get('events', 0)} operations of {expected}), {tot['events_ms'] * 1e3:.2f} us "
+                  f"back to back by events; plain {tot['plain_ms'] * 1e3:.1f} us by events; bound "
+                  f"{b * 1e3:.3f} us ({by}: {tot['bytes'] / 1e6:.2f} MB, {tot['ops'] / 1e9:.3f} G 32-bit operations)")
+        print(f"[sampling] (a) N={n}: kernel C's streams 0 and {D - 1} equal the host BLAKE2xb stream; "
+              f"{int(counts.sum())} uniform words rejected")
+        del boot, public, words, vals, counts, noise, want_vals, want_counts, calls
+
+    # ---- (b) keygen: the device path against the host path ---------------------
+    def keys(n):
+        contexts[n].key_context_data().parms.random_generator.restart()
+        kg = KeyGenerator(contexts[n])
+        out = []
+        for save_seed in (False, True):
+            rk = kg.create_relin_keys(save_seed=save_seed).keys[0]
+            out += [rk["c0"], rk["c1"], [s.seed for s in rk["seeds"]] if save_seed else None]
+            if save_seed:
+                check(len(set(out[-1])) == rk["c1"].shape[0], f"(b) N={n}: the key's public seeds are not distinct")
+        gk = kg.create_galois_keys_from_steps([1])
+        g = gk.key(3)
+        pk = kg.create_public_key(save_seed=True)
+        return out + [g["c0"], g["c1"], pk.data.data, pk.data.seed_info.seed]
+
+    host_keys = {}
+    with host_sampling():
+        for n in sizes[:2]:
+            host_keys[n] = keys(n)
+    # per key, and per encryption: kernel C twice (the bootstrap streams, the
+    # uniform streams), kernel D once for each entry point; four keys per N
+    dev_keys = sampled("14b", lambda: {n: keys(n) for n in sizes[:2]})
+    check(SAMPLING["14b"] == {"blake2xb": 16, "sample_uniform": 8, "sample_cbd": 8},
+          f"(b) keygen launched kernels C and D {SAMPLING['14b']}, predicted 16, 8 and 8")
+    for n in sizes[:2]:
+        for i, (got, want) in enumerate(zip(dev_keys[n], host_keys[n])):
+            same = torch.equal(got, want) if isinstance(got, torch.Tensor) else got == want
+            check(same, f"(b) N={n}: key part {i} on the device path differs from the host path")
+    del dev_keys, host_keys
+    print(f"[sampling] (b) N={sizes[0]} and N={sizes[1]}, a BLAKE2XB factory handing out a distinct seed per draw "
+          f"(replayed for each path): relinearization keys (with and without save_seed), "
+          f"the Galois key of step 1 and the seeded public key on the device path equal to the host path byte for "
+          f"byte, seeds included; 2 launches of kernel C and 1 of each entry point of kernel D per key")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    client_ms = {}
+    for n, ctx in contexts.items():
+        kg = KeyGenerator(ctx)
+        plain = CKKSEncoder(ctx).encode(np.linspace(-1.0, 1.0, n // 2), 2.0 ** 40)
+        sym = Encryptor(ctx, secret_key=kg.secret_key)
+        steps = {"create_relin_keys()": kg.create_relin_keys,
+                 "create_galois_keys_from_steps([1])": lambda: kg.create_galois_keys_from_steps([1]),
+                 "encrypt_symmetric": lambda: sym.encrypt_symmetric(plain)}
+        client_ms[n] = {}
+        for name, fn in steps.items():
+            runs = {"device": [], "host": []}
+            for path in ("host", "device", "device", "host", "host", "device", "device", "host"):
+                if path == "host":
+                    with host_sampling():
+                        runs[path].append(timed(fn))
+                else:
+                    runs[path].append(timed(fn))
+            # the first run of each path warms up
+            dev_ms, host_ms = _median(runs["device"][1:]), _median(runs["host"][1:])
+            client_ms[n][name] = {"device_ms": dev_ms, "host_ms": host_ms}
+            print(f"[sampling] (b) N={n} {name}: device path {dev_ms:.3f} ms, host path {host_ms:.3f} ms (medians "
+                  f"of 3 after a warm-up, interleaved; device runs "
+                  f"{', '.join(f'{v:.3f}' for v in runs['device'][1:])}, host runs "
+                  f"{', '.join(f'{v:.3f}' for v in runs['host'][1:])})")
+        del kg, plain, sym, steps
+    check(rlwe.host_fallbacks == fallbacks, f"{rlwe.host_fallbacks - fallbacks} draws overflowed to the host")
+
+    # ---- (c) a seeded encryption over the wire --------------------------------
+    ctx = contexts[sizes[1]]
+    kg = KeyGenerator(ctx)
+    plain = CKKSEncoder(ctx).encode(np.linspace(-1.0, 1.0, sizes[1] // 2), 2.0 ** 40)
+    factory = ctx.key_context_data().parms.random_generator
+    factory.restart()
+    ct = Encryptor(ctx, secret_key=kg.secret_key).encrypt_symmetric(plain, save_seed=True)
+    factory.restart()
+    with host_sampling():
+        host_ct = Encryptor(ctx, secret_key=kg.secret_key).encrypt_symmetric(plain, save_seed=True)
+    check(torch.equal(ct.data, host_ct.data) and ct.seed_info == host_ct.seed_info,
+          "(c) the seeded encryption differs from the host path")
+    t0 = time.perf_counter()
+    raw = S.ciphertext_save(ct, S.COMPR_NONE)
+    loaded, used = S.ciphertext_load(raw, ctx)
+    torch.cuda.synchronize()
+    wire_ms = (time.perf_counter() - t0) * 1e3
+    check(used == len(raw) and loaded.parms_id == ct.parms_id and loaded.scale == ct.scale,
+          "(c) the seeded ciphertext did not load back whole")
+    check(torch.equal(loaded.data, ct.data), "(c) the loaded ciphertext (c1 expanded on the host from its seed) "
+                                             "differs from the one kernels C and D sampled")
+    print(f"[sampling] (c) N={sizes[1]}: encrypt_symmetric(save_seed=True) on the device path equals the host path; "
+          f"saved ({len(raw)} bytes) and loaded with c1 expanded from its seed on the host in {wire_ms:.1f} ms, equal "
+          f"to the ciphertext in memory")
+    print(f"[sampling] phase 14 in {time.time() - t_phase:.1f} s; {rlwe.host_fallbacks - fallbacks} host fallbacks")
+    return kernels, client_ms, max_err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2292,7 +2622,7 @@ def main():
     ntt_cuda.launches = 0
     switch_key_contract_cuda.launches = 0
     stage_cuda.launches = 0
-    tensors, values, steps, (rev, rrk, rpairs) = round_trip()
+    tensors, values, steps, (rev, rrk, rpairs) = sampled("7", round_trip)
     large_launches = {"four_step_stage": stage_cuda.launches, "ntt": ntt_cuda.launches,
                       "switch_key": switch_key_contract_cuda.launches}
     for name, tensor in tensors.items():
@@ -2371,8 +2701,11 @@ def main():
 
     # ---- phase 13: the wire path -------------------------------------------
     t_wire = time.time()
-    wire = wire_phase(card_line)
+    wire = sampled("13", lambda: wire_phase(card_line))
     print(f"[wire] phase 13 in {time.time() - t_wire:.1f} s")
+
+    # ---- phase 14: device sampling -----------------------------------------
+    sampling, client_ms, sampling_err = sampling_phase(gen)
 
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
@@ -2392,6 +2725,19 @@ def main():
          "plain_ms": stage_totals["plain_ms"], "bound_ms": b_stage, "bound_by": by_stage, "library_ms": None},
         turn_entry,
     ]}
+    for name, source, replaces in (
+            ("blake2xb", "seal_tpu_torch/csrc/blake2xb.cu", "seal_tpu/ops/blake2_dev.py:184"),
+            ("sample_uniform", "seal_tpu_torch/csrc/sample.cu", "seal_tpu/ops/blake2_dev.py:281"),
+            ("sample_cbd", "seal_tpu_torch/csrc/sample.cu", "seal_tpu/ops/blake2_dev.py:393")):
+        main_key = sampling[name][8192]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": SAMPLING["14b"][name], "max_abs_err": sampling_err[name], "ms": main_key["ms"],
+                 "plain_ms": main_key["plain_ms"], "bound_ms": main_key["bound_ms"], "bound_by": main_key["bound_by"],
+                 "library_ms": None, "n32768": sampling[name][32768],
+                 "phases": {phase: counts[name] for phase, counts in SAMPLING.items()}}
+        if name == "blake2xb":
+            entry["client_ms"] = client_ms
+        kernels["kernels"].append(entry)
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s; kernel A's ms, plain_ms and bound_ms "
           f"sum the five calls of one N=8192 request, the stage kernel's the twelve of one N=65536 request; its "
           f"launches count the whole N=65536 round trip, keygen to decode; each kernel's ms is the profiler's device time, each plain_ms CUDA events around calls of the plain version (the corner turn's: device time)")
@@ -2410,6 +2756,17 @@ def main():
           f"launches per request and per batch, and the profiler's device time of each kernel per request in the "
           f"sequential and the batched run; the wire objects: phase 13's launches per served request and per batch, "
           f"on SEAL's blobs, and its ms per request over the wire and in memory")
+    print("[done] kernels C (blake2xb) and D (sample_uniform, sample_cbd, one source with two entry points) replace "
+          "no Pallas kernel but the jnp code of seal_tpu/ops/blake2_dev.py at the lines given; their ms, plain_ms and "
+          "bound_ms sum the calls of one N=8192 relinearization key (kernel C: the bootstrap and the uniform streams), "
+          "n32768 those of one N=32768 key on bfv_default(32768), each call's ms the profiler's mean device operation "
+          "times the operations a call records (device_ops_per_call: kernel C's root and node passes; the bulk pass's "
+          "zero fill of its counts and its kernel; the CBD pass); launches count wrapper calls in phase 14(b)'s counted "
+          "keygen (four keys at each of the two sizes), so a launch of kernel C is two kernels; phases the launches "
+          "in each phase's counted keygen or client run; max_abs_err is phase 14(a)'s largest difference from the "
+          "plain version, read as u64; library_ms is null: no PyTorch call computes "
+          "BLAKE2b or the samplers; client_ms holds phase 14(b)'s keygen and encryption ms on the device path and "
+          "on the host path (SEAL_TPU_DEVICE_SAMPLING=0) at N=8192, 32768 and 65536")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

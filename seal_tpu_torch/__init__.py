@@ -15,9 +15,12 @@ Four hand-written Hopper kernels carry the ring arithmetic: the negacyclic
 NTT up to N=32768 (``csrc/ntt.cu``), the fused key switch up to N=32768
 (``csrc/switch_key.cu``), the four-step stage of every NTT above N=32768
 (``csrc/four_step.cu``) and the distributed NTT's corner turn
-(``csrc/corner_turn.cu``).  Serialization, the samplers and the checks run
-on the host in numpy, as in the JAX package.  The package imports neither
-JAX nor ``seal_tpu``.
+(``csrc/corner_turn.cu``).  Two more sample keygen's keys and symmetric
+encryptions on the card, as the JAX package samples on its device: the
+BLAKE2xb stream (``csrc/blake2xb.cu``) and the uniform and CBD samplers
+over it (``csrc/sample.cu``).  Serialization, the other samplers and the
+checks run on the host in numpy, as in the JAX package.  The package
+imports neither JAX nor ``seal_tpu``.
 
 Contexts live on the card by default; ``SealContext(..., device="cpu")``
 runs the plain PyTorch versions on the CPU, and every object loaded for a

@@ -1,12 +1,20 @@
 """Key generation: the secret key, the public key, relinearization keys and
 Galois keys.
 
-Port of ``seal_tpu/keygen.py`` (counterpart of ``keygenerator.{h,cpp}``) on
-its host-sampled path.  A key-switching key follows the reference
-(``keygenerator.cpp:327-360``): for decomposition limb i, an NTT-form
-encryption of zero at the key level with ``(q_last mod q_i) * target[i]``
-added into c0's limb i, stacked over the decomposition axis.  A Galois key is the key-switching
-key of the secret key's automorphism (``keygenerator.cpp`` generate_galois_keys).
+Port of ``seal_tpu/keygen.py`` (counterpart of ``keygenerator.{h,cpp}``).
+A key-switching key follows the reference (``keygenerator.cpp:327-360``):
+for decomposition limb i, an NTT-form encryption of zero at the key level
+with ``(q_last mod q_i) * target[i]`` added into c0's limb i, stacked over
+the decomposition axis.  A Galois key is the key-switching key of the
+secret key's automorphism (``keygenerator.cpp`` generate_galois_keys).
+
+The D encryptions of a key sample on the device by default, as in the JAX
+package: one set of launches over D streams (kernels C and D, then kernel
+A, on the card), byte-identical to the D host-sampled encryptions it
+replaces, which serve where ``rlwe.device_sampling`` says no (a PRNG that
+is not BLAKE2xb, Gaussian noise, the switch off) and after a
+rejection-tail overflow.  The secret key and public-key encryption sample
+on the host.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from .ops import poly as P
 from .ops import u64 as U
 from .ops.rns import _c, _cshoup
 from .random.sampler import sample_poly_ternary
-from .rlwe import encrypt_zero_symmetric
+from .rlwe import device_sampling, device_samples, encrypt_zero_symmetric, seed_infos, zero_encryption
+
 
 class KeyGenerator:
     def __init__(self, context: SealContext, secret_key: Optional[SecretKey] = None):
@@ -60,20 +69,56 @@ class KeyGenerator:
         c0's limb i, stacked: {'c0', 'c1': (D, k_key, n), 'seeds'}."""
         if not self.context.using_keyswitching:
             raise ValueError("keyswitching is not supported by the context")
-        key_cd = self.context.key_context_data()
-        key_moduli = key_cd.coeff_modulus_values
-        D = len(self.context.first_context_data().parms.coeff_modulus)
-        cts = [encrypt_zero_symmetric(self._secret_key, self.context, key_cd.parms_id, True, save_seed)
-               for _ in range(D)]
-        c0 = torch.stack([ct.data[0] for ct in cts])
-        c1 = torch.stack([ct.data[1] for ct in cts])
-        dev = self.context.device
+        parms = self.context.key_context_data().parms
+        if device_sampling(parms):
+            out = self._generate_one_kswitch_key_device(target, save_seed)
+            if out is not None:
+                return out
+        return self._generate_one_kswitch_key_host(target, save_seed)
+
+    def _add_target(self, c0: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """c0 (D, k_key, n) with (q_last mod q_i) * target[i] added into limb i of row i."""
+        key_moduli = self.context.key_context_data().coeff_modulus_values
+        D = c0.shape[0]
+        dev = c0.device
         q = _c(key_moduli, dev)
         op, qt = _cshoup([key_moduli[-1] % qi for qi in key_moduli], key_moduli, dev)
         add_term = U.mul_mod_shoup(target, op, qt, q)                     # (k_key, n)
         diag = torch.arange(D, device=dev)
         c0[diag, diag] = U.add_mod(c0[diag, diag], add_term[:D], q[:D])
-        return {"c0": c0, "c1": c1, "seeds": [ct.seed_info for ct in cts] if save_seed else None}
+        return c0
+
+    def _generate_one_kswitch_key_device(self, target: torch.Tensor, save_seed: bool = False):
+        """All D encryptions sampled on the device in one set of launches
+        (``seal_tpu/keygen.py:88-156``): D bootstrap seeds drawn from the
+        factory in the host path's order, their streams (the public seed,
+        then the noise), the uniform c1 over the key level from the public
+        seeds.  None after a rejection-tail overflow."""
+        context = self.context
+        key_cd = context.key_context_data()
+        parms = key_cd.parms
+        key_moduli = key_cd.coeff_modulus_values
+        n = parms.poly_modulus_degree
+        D = len(context.first_context_data().parms.coeff_modulus)
+        boot_seeds = u64_tensor([parms.random_generator.create().seed for _ in range(D)], context.device)
+        samples = device_samples(boot_seeds, 0, n, key_moduli)
+        if samples is None:
+            return None
+        public, a, noise = samples                                        # (D, 8), (D, k_key, n) twice
+        c0, c1 = zero_encryption(self._secret_key.data, a, noise, parms, key_moduli, key_cd.limb_tables(),
+                                 True, save_seed)
+        return {"c0": self._add_target(c0, target), "c1": c1, "seeds": seed_infos(public) if save_seed else None}
+
+    def _generate_one_kswitch_key_host(self, target: torch.Tensor, save_seed: bool = False) -> dict:
+        """The D encryptions one after another, sampled on the host."""
+        key_cd = self.context.key_context_data()
+        D = len(self.context.first_context_data().parms.coeff_modulus)
+        cts = [encrypt_zero_symmetric(self._secret_key, self.context, key_cd.parms_id, True, save_seed)
+               for _ in range(D)]
+        c0 = torch.stack([ct.data[0] for ct in cts])
+        c1 = torch.stack([ct.data[1] for ct in cts])
+        return {"c0": self._add_target(c0, target), "c1": c1,
+                "seeds": [ct.seed_info for ct in cts] if save_seed else None}
 
     def create_relin_keys(self, count: int = 1, save_seed: bool = False) -> RelinKeys:
         """Keys for s^2 .. s^(count+1) (cf. create_relin_keys_internal)."""

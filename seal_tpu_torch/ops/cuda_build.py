@@ -22,7 +22,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("ntt", "switch_key", "four_step", "corner_turn")
+SOURCES = ("ntt", "switch_key", "four_step", "corner_turn", "blake2xb", "sample")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -674,3 +674,146 @@ def test_wire_request_on_the_card_gives_the_cpu_bytes(card):
     batch = dec.decrypt_batch(CiphertextBatch.from_ciphertexts(replies))
     for one, plain in zip(replies, batch):
         assert torch.equal(dec.decrypt(one).rns_data, plain.rns_data)
+
+
+# -- kernels C and D: the BLAKE2xb stream and the samplers ------------------------------
+
+def _stream_seeds(S, device, seed=10):
+    words = np.random.default_rng(seed).integers(0, 1 << 64, size=(S, 8), dtype=np.uint64)
+    return torch.from_numpy(words.view(np.int64)).to(device)
+
+
+def _prime_near(x, two_n):
+    from seal_tpu_torch import numth
+    c = x - (x % two_n) + 1
+    while not numth.is_prime(c):
+        c -= two_n
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S, nwords", [(1, 1), (3, 511), (3, 513), (2, 1500), (15, 16 * 32768 + 16 * 128)])
+def test_blake2xb_kernel_matches_plain_and_the_host_stream(card, S, nwords):
+    from seal_tpu_torch.ops import blake2_dev as B
+    from seal_tpu_torch.ops.cuda_blake2 import expand_stream_words_cuda
+    from seal_tpu_torch.random.prng import Blake2xbPRNG
+    seeds = _stream_seeds(S, card)
+    before = expand_stream_words_cuda.launches
+    got = expand_stream_words_cuda(seeds, nwords)
+    torch.cuda.synchronize()
+    assert expand_stream_words_cuda.launches == before + 1
+    assert torch.equal(got, B.expand_stream_words_plain(seeds, nwords))
+    host = seeds.cpu().numpy().view(np.uint64)
+    for i in range(min(S, 3)):
+        want = np.frombuffer(Blake2xbPRNG(tuple(int(w) for w in host[i])).generate(8 * nwords), dtype="<u8")
+        np.testing.assert_array_equal(u64_to_numpy(got[i]), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["high_rejection", "bfv_default(32768)"])
+def test_sample_kernel_matches_plain(card, chain):
+    """Kernel D's two entry points against their plain versions: at 62-bit
+    moduli that reject one word in 16 (counts non-zero, then the fix-up on
+    the card against the host sampler), and over the N=32768 key level of
+    the default chain with D=15 streams."""
+    from seal_tpu_torch.ops import blake2_dev as B
+    from seal_tpu_torch.ops.cuda_blake2 import cbd_lifted_cuda, uniform_bulk_cuda
+    from seal_tpu_torch.random.prng import Blake2xbPRNG
+    from seal_tpu_torch.random.sampler import sample_poly_uniform
+    if chain == "high_rejection":
+        n, S = 512, 3
+        moduli = (_prime_near(3 << 60, 2 * n), _prime_near((3 << 60) - (1 << 55), 2 * n))
+    else:
+        n, S = 32768, 15
+        moduli = tuple(m.value for m in CoeffModulus.bfv_default(n)) + (_prime_near(1 << 60, 2 * n),)
+    seeds = _stream_seeds(S, card, 11)
+    words = B.expand_stream_words(seeds, len(moduli) * n + B.uniform_tail_words(n, moduli)[1])
+    q, mm, rhi = B.uniform_constants(moduli, card)
+    before = (uniform_bulk_cuda.launches, cbd_lifted_cuda.launches)
+    vals, counts = uniform_bulk_cuda(words, n, q, mm, rhi)
+    noise = cbd_lifted_cuda(words, n, q, 67)
+    torch.cuda.synchronize()
+    assert (uniform_bulk_cuda.launches, cbd_lifted_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want_vals, want_counts = B.uniform_bulk_plain(words, n, moduli)
+    assert torch.equal(vals, want_vals) and torch.equal(counts, want_counts)
+    assert bool((counts > 0).all()) == (chain == "high_rejection")
+    assert torch.equal(noise, B.cbd_lifted_plain(words, n, moduli, 67))
+    if chain == "high_rejection":
+        got, overflow = B.uniform_from_seed_words(seeds, n, moduli)
+        torch.cuda.synchronize()
+        assert not overflow.any()
+        host = seeds.cpu().numpy().view(np.uint64)
+        for i in range(S):
+            want = sample_poly_uniform(Blake2xbPRNG(tuple(int(w) for w in host[i])), n, moduli)
+            np.testing.assert_array_equal(u64_to_numpy(got[i]), want)
+
+
+class _FreshSeeds(UniformRandomGeneratorFactory):
+    """A BLAKE2XB factory whose create() draws a new seed at each call from
+    seeded numpy; restart() replays the draws."""
+
+    def __init__(self, seed):
+        super().__init__(PRNGType.BLAKE2XB)
+        self.seed = seed
+        self.restart()
+
+    def restart(self):
+        self.rng = np.random.default_rng(self.seed)
+
+    def create(self, seed=None):
+        if seed is None:
+            seed = tuple(int(w) for w in self.rng.integers(0, 1 << 64, size=8, dtype=np.uint64))
+        return super().create(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", [SchemeType.CKKS, SchemeType.BFV, SchemeType.BGV])
+def test_device_sampled_keys_on_card_equal_the_host_path(card, scheme, monkeypatch):
+    """Keygen and symmetric encryption at N=8192 through kernels C and D
+    (two launches of C and one of each of D's entry points per key and per
+    encryption), equal to the host-sampled path on the card, with a factory
+    that hands out a distinct seed per draw (replayed for each path), so
+    that each of the key's rows comes from its own stream."""
+    from seal_tpu_torch import PlainModulus, rlwe
+    from seal_tpu_torch.ops.cuda_blake2 import cbd_lifted_cuda, expand_stream_words_cuda, uniform_bulk_cuda
+    parms = EncryptionParameters(scheme)
+    parms.set_poly_modulus_degree(8192)
+    parms.set_coeff_modulus(CoeffModulus.bfv_default(8192))
+    if scheme != SchemeType.CKKS:
+        parms.set_plain_modulus(PlainModulus.batching(8192, 20))
+    factory = _FreshSeeds(9)
+    parms.set_random_generator(factory)
+    ctx = SealContext(parms, True, SecurityLevel.TC128, device=card)
+    kg = KeyGenerator(ctx)
+
+    def client():
+        factory.restart()
+        rk = kg.create_relin_keys(save_seed=True).keys[0]
+        ct = Encryptor(ctx, secret_key=kg.secret_key).encrypt_zero_symmetric(save_seed=True)
+        return rk, ct
+
+    monkeypatch.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
+    want_rk, want_ct = client()
+    monkeypatch.setenv("SEAL_TPU_DEVICE_SAMPLING", "1")
+    counters = (expand_stream_words_cuda, uniform_bulk_cuda, cbd_lifted_cuda)
+    before = [f.launches for f in counters] + [rlwe.host_fallbacks]
+    rk, ct = client()
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] + [rlwe.host_fallbacks] == [before[0] + 4, before[1] + 2,
+                                                                      before[2] + 2, before[3]]
+    assert torch.equal(rk["c0"], want_rk["c0"]) and torch.equal(rk["c1"], want_rk["c1"])
+    assert rk["seeds"] == want_rk["seeds"] and len(set(s.seed for s in rk["seeds"])) == rk["c1"].shape[0]
+    assert torch.equal(ct.data, want_ct.data) and ct.seed_info == want_ct.seed_info
+
+
+def test_blake2_wrappers_refuse_what_the_kernels_do_not_take():
+    from seal_tpu_torch.ops.cuda_blake2 import cbd_lifted_cuda, expand_stream_words_cuda, uniform_bulk_cuda
+    q = torch.tensor([97], dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        expand_stream_words_cuda(torch.zeros((1, 8), dtype=torch.int64), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        uniform_bulk_cuda(torch.zeros((1, 16), dtype=torch.int64), 8, q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        cbd_lifted_cuda(torch.zeros((1, 16), dtype=torch.int64), 8, q, 0)
+    with pytest.raises(ValueError, match="stream words"):
+        uniform_bulk_cuda(torch.zeros((1, 16), dtype=torch.int32), 8, q, q, q)
