@@ -202,6 +202,31 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
    Keygen and symmetric encryption run through kernels C and D in every
    phase; phases 7, 10(b), 11(d), 12(c) and 13 print their launches in the
    counted run and fail if either kernel ran no time.
+15. BFV and BGV on an 8-rank mesh of the card, and the tooling:
+   (a) ``build_bfv_mult_relin``'s requests (phase 11's; 8 at N=8192, 4 at
+       N=32768, whose 15 limbs split 8 + 7) as one ``BatchEvaluator`` batch
+       on a (data 4, limb 2) mesh: equal to phase 11's batch outputs and
+       request 0 to ``BFV_DIGEST`` / ``BFV_MEDIUM_DIGEST``, 32 launches of
+       kernel A and 8 of B per batch (worked out from the code: a rank's
+       BEHZ transforms, 2, and its key-switch tail, 2; its contraction, 1),
+       ms and launches per request and the device-busy share;
+   (b) ``golden.bgv_request`` the same way: equal to phase 12's outputs and
+       correction factors and to ``BGV_DIGEST`` / ``BGV_MEDIUM_DIGEST``, the
+       switch re-splitting 15 -> 14 limbs (7 + 7), 64 launches of A and 16
+       of B per batch (a rank's two key switches, 3 each, and its mod-t
+       switch, 2; its two contractions);
+   (c) N=8192 BFV on a (host 2, data 2, limb 2) mesh with replicated keys:
+       multiply, rotate_rows(1) and a request equal to the unsharded batch
+       and phase 11; then ``dryrun.dryrun_multichip(8, devices=[card] * 8)``
+       with its BFV part;
+   (d) ``SEAL_TPU_DEBUG=1``: phase 4's request 0 and phase 11's pass every
+       range check with their outputs and launches unchanged, the checked
+       run's ms printed beside the unchecked;
+   (e) the seven example twins (``seal_tpu_torch/examples/``) on the card,
+       each to its asserts;
+   (f) ``profiling.device_time_us`` (CUDA events around bursts of calls) of
+       kernel C's and the bulk pass's N=32768 calls beside phase 14(a)'s
+       profiler device time.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any mismatch, build failure or launch
@@ -975,7 +1000,8 @@ def linear_phase():
 def bfv_phase(gen):
     """Phase 11: BFV on the card (``golden.bfv_context``: bfv_default(n) at
     SecurityLevel.TC128, t = PlainModulus.batching(n, 20)).  Returns the
-    BFV entries of kernels A and B for the kernels' JSON line."""
+    BFV entries of kernels A and B for the kernels' JSON line, and the
+    batch's outputs by N for phase 15."""
     from seal_tpu_torch import Decryptor, Encryptor, KeyGenerator, PRNGType, UniformRandomGeneratorFactory
     from seal_tpu_torch import golden
     from seal_tpu_torch.context import SealContext
@@ -1003,6 +1029,7 @@ def bfv_phase(gen):
         return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
 
     result = {"ntt": {}, "switch_key": {}}
+    batch_outs = {}             # n -> phase 11's batch outputs, for phase 15
     max_err = {"ntt": 0, "switch_key": 0}
     for n, requests in ((golden.BFV_N, 8), (golden.BFV_MEDIUM_N, 4)):
         t_n = time.perf_counter()
@@ -1169,6 +1196,7 @@ def bfv_phase(gen):
                                           ms_per_request_sequential=seq["ms_per_request"],
                                           ms_per_request_batched=batch["ms_per_request"],
                                           device_busy_ms_per_request_batched=batch["device_busy_ms_per_request"])
+        batch_outs[n] = batch["outs"]
         del cts, rk, one, ref0, timings, seq, batch, ev, bev, plan, ctx
         torch.cuda.empty_cache()
 
@@ -1233,14 +1261,14 @@ def bfv_phase(gen):
           f"mod_switch_to_next (kernel A {launches[0]}, kernel B {launches[1]}) equal to the plain path, decrypted and "
           f"decoded equal to numpy's slot-wise product mod t with rows rotated and columns swapped; invariant noise "
           f"budget {budget_before} bits before, {budget_after} after; {time.perf_counter() - t_d:.1f} s")
-    return result
+    return result, batch_outs
 
 
 def bgv_phase(gen):
     """Phase 12: BGV on the card (``golden.bgv_context``: bfv_default(n) at
     SecurityLevel.TC128, t = PlainModulus.batching(n, 20), as a BGV
     context).  Returns the BGV entries of kernels A and B for the kernels'
-    JSON line."""
+    JSON line, and the batch's outputs by N for phase 15."""
     from seal_tpu_torch import Decryptor, Encryptor, KeyGenerator, PRNGType, UniformRandomGeneratorFactory
     from seal_tpu_torch import golden
     from seal_tpu_torch.context import SealContext
@@ -1266,6 +1294,7 @@ def bgv_phase(gen):
         return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
 
     result = {"ntt": {}, "switch_key": {}}
+    batch_outs = {}             # n -> phase 12's batch outputs, for phase 15
     for n, requests in ((golden.BGV_N, 8), (golden.BGV_MEDIUM_N, 4)):
         t_n = time.perf_counter()
         tag = f"[bgv N={n}]"
@@ -1436,6 +1465,7 @@ def bgv_phase(gen):
                                           ms_per_request_batched=batch["ms_per_request"],
                                           device_busy_ms_per_request_sequential=seq["device_busy_ms_per_request"],
                                           device_busy_ms_per_request_batched=batch["device_busy_ms_per_request"])
+        batch_outs[n] = batch["outs"]
         del cts, rk, gk, one, ref0, timings, seq, batch, ev, bev, plan, ctx
         torch.cuda.empty_cache()
 
@@ -1510,7 +1540,7 @@ def bgv_phase(gen):
           f"equal to the plain path, decrypted and decoded equal to numpy's (a b + c) mod t with rows rotated and "
           f"columns swapped; invariant noise budget {budget_before} bits fresh, {budget_after} at the end; "
           f"{time.perf_counter() - t_c0:.1f} s")
-    return result
+    return result, batch_outs
 
 
 def _median(values):
@@ -2221,6 +2251,246 @@ def sampling_phase(gen, device=None, sizes=(8192, 32768, 65536)):
     return kernels, client_ms, max_err
 
 
+def tooling_mesh_phase(card, gen, card_line, ckks, bfv_outs, bgv_outs, sampling):
+    """Phase 15: BFV and BGV on an 8-rank mesh of the card, the (host 2,
+    data 2, limb 2) mesh with replicated keys and the dryrun, debug mode on
+    the card, the example twins, and the event timers' cross-check of
+    kernels C and D.  ``ckks``: phase 4's (context, requests, relinearization
+    keys, outputs); ``bfv_outs``/``bgv_outs``: phases 11's and 12's batch
+    outputs by N; ``sampling``: phase 14's kernel numbers; ``card``: the
+    device of every rank.  Returns the mesh entries of kernels A and B for
+    the kernels' JSON line and (f)'s times."""
+    import contextlib
+    import importlib
+    import io
+
+    from seal_tpu_torch import CoeffModulus, dryrun, golden, profiling
+    from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, relin_keys_from_numpy,
+                                        u64_from_numpy, u64_to_numpy)
+    from seal_tpu_torch.evaluator import Evaluator
+    from seal_tpu_torch.examples import NAMES
+    from seal_tpu_torch.ops import blake2_dev as B
+    from seal_tpu_torch.ops.cuda_blake2 import expand_stream_words_cuda, uniform_bulk_cuda
+    from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
+    from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda
+    from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+    from seal_tpu_torch.parallel.mesh import make_mesh, split_bounds
+    from seal_tpu_torch.pipeline import build_bfv_mult_relin
+
+    ranks = [card] * 8
+
+    def counted(fn):
+        """fn() with the three counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+
+    def timed(fn, count, runs=3):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / count)
+        return times
+
+    # ---- (a), (b) BFV and BGV on the (data 4, limb 2) mesh ---------------------
+    # Launches per batch, from the code (parallel/sharded.py): a rank that
+    # holds some of the level's k limbs runs
+    # - BFV's multiply (bfv_multiply): kernel A for the forward and the
+    #   t-scaled inverse NTT over its q limbs and Bsk: 2;
+    # - a BFV key switch: kernel B once; kernel A for the tail's two inverse
+    #   NTTs (mod the special prime, and of its limbs of the sum): 2;
+    # - a BGV key switch: kernel B once; kernel A for the inverse NTT of its
+    #   limbs of the target and the tail's inverse and forward NTT: 3;
+    # and a rank that holds limbs below the last runs BGV's mod-t switch
+    # (mod_switch): kernel A for the inverse NTT of the broadcast last limb
+    # and the forward NTT of its limbs' correction: 2.  At k = 4 (2 + 2) and
+    # k = 15 (8 + 7) every rank does all of it: A 32 and B 8 per BFV batch,
+    # A 64 and B 16 per BGV batch.
+    hem = make_mesh(8, limb_parallel=2, devices=ranks)
+
+    def expect(scheme, k):
+        ranges = split_bounds(k, 2) * 4
+        holding = sum(hi > lo for lo, hi in ranges)
+        switching = sum(min(hi, k - 1) > lo for lo, hi in ranges)
+        if scheme == "bfv":
+            return 4 * holding, holding, 0
+        return 6 * holding + 2 * switching, 2 * holding, 0
+    entries = {"ntt": {"bfv": {}, "bgv": {}}, "switch_key": {"bfv": {}, "bgv": {}}}
+    for scheme, sizes in (("bfv", ((golden.BFV_N, 8), (golden.BFV_MEDIUM_N, 4))),
+                          ("bgv", ((golden.BGV_N, 8), (golden.BGV_MEDIUM_N, 4)))):
+        for n, requests in sizes:
+            t_n = time.perf_counter()
+            tag = f"[mesh {scheme} N={n}]"
+            ctx = (golden.bfv_context if scheme == "bfv" else golden.bgv_context)(n, card)
+            k = len(ctx.first_context_data().coeff_modulus_values)
+            rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, card)
+            galois = [None] * n
+            galois[golden.BGV_GALOIS_ELT >> 1] = golden.galois_key_inputs(ctx, golden.BGV_GALOIS_SEED)
+            gk = galois_keys_from_numpy(galois, ctx.key_parms_id, card)
+            cts = [tuple(ciphertext_from_numpy(d, ctx.first_parms_id, scheme == "bgv", 1.0, card)
+                         for d in golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)) for r in range(requests)]
+            b1, b2 = (CiphertextBatch.from_ciphertexts([c[i] for c in cts]) for i in range(2))
+            bev = BatchEvaluator(ctx, hem)
+
+            def serve():
+                x, y = bev.shard(b1), bev.shard(b2)
+                if scheme == "bfv":
+                    return bev.relinearize(bev.multiply(x, y), rk)
+                return golden.bgv_request(bev, x, y, rk, gk)
+
+            serve()                                        # warm-up: plans and tables
+            out, launches = counted(serve)
+            check(launches == expect(scheme, k), f"{tag} launched (A, B, stage) {launches}; expected "
+                                                 f"{expect(scheme, k)}")
+            want = (bfv_outs if scheme == "bfv" else bgv_outs)[n]
+            whole = out.unshard()
+            check(torch.equal(whole.data, want.data) and whole.parms_id == want.parms_id
+                  and whole.correction_factor == want.correction_factor,
+                  f"{tag} the mesh's outputs differ from phase {11 if scheme == 'bfv' else 12}'s batch")
+            dig = golden.digest(u64_to_numpy(whole.data[0]))
+            want_dig = {(golden.BFV_N, "bfv"): golden.BFV_DIGEST, (golden.BFV_MEDIUM_N, "bfv"): golden.BFV_MEDIUM_DIGEST,
+                        (golden.BGV_N, "bgv"): golden.BGV_DIGEST,
+                        (golden.BGV_MEDIUM_N, "bgv"): golden.BGV_MEDIUM_DIGEST}[(n, scheme)]
+            check(dig == want_dig, f"{tag} request 0's digest {dig}")
+            split = [sh.shape[-2] for sh in out.data.shards[:2]]
+            k_out = k if scheme == "bfv" else k - 1
+            check(split == [hi - lo for lo, hi in split_bounds(k_out, 2)],
+                  f"{tag} limbs split {split} over the limb axis for k={k_out}")
+            times = timed(serve, requests)
+            wall, n_dev, busy = profile_run(serve)
+            prof_line = ("the profiler recorded no device time: not measured" if n_dev is None else
+                         f"under the profiler {n_dev / requests:.1f} device launches per request, device busy "
+                         f"{busy / requests:.3f} ms per request of wall {wall / requests:.3f} ms "
+                         f"({100 * busy / wall:.1f}%)")
+            median = sorted(times)[1]
+            print(f"{tag} {requests} requests ({'multiply -> relinearize' if scheme == 'bfv' else 'golden.bgv_request'})"
+                  f" as one batch on the (data 4, limb 2) mesh of 8 ranks of the card: equal to phase "
+                  f"{11 if scheme == 'bfv' else 12}'s batch and the JAX package's digest, correction factor "
+                  f"{whole.correction_factor}, limbs {k} -> {k_out} split {split}; launches per batch: kernel A "
+                  f"{launches[0]}, kernel B {launches[1]}, stage {launches[2]} ({launches[0] / requests:g} and "
+                  f"{launches[1] / requests:g} per request); ms per request over 3 runs "
+                  f"{', '.join(f'{t:.3f}' for t in times)} (median {median:.3f}); {prof_line}; "
+                  f"{time.perf_counter() - t_n:.1f} s")
+            for kernel, index in (("ntt", 0), ("switch_key", 1)):
+                entries[kernel][scheme][f"n{n}"] = {
+                    "launches_per_batch": launches[index], "requests": requests, "ms_per_request": median,
+                    "device_busy_ms_per_request": None if busy is None else busy / requests}
+            del cts, b1, b2, out, whole, rk, gk, bev, ctx
+            torch.cuda.empty_cache()
+
+    # ---- (c) BFV on the (host 2, data 2, limb 2) mesh with replicated keys -----
+    t_c = time.perf_counter()
+    n = golden.BFV_N
+    ctx = golden.bfv_context(n, card)
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, card)
+    galois = [None] * n
+    galois[golden.BGV_GALOIS_ELT >> 1] = golden.galois_key_inputs(ctx, golden.BGV_GALOIS_SEED)
+    gk = galois_keys_from_numpy(galois, ctx.key_parms_id, card)
+    b1, b2 = (CiphertextBatch.from_ciphertexts([
+        ciphertext_from_numpy(golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)[i], ctx.first_parms_id,
+                              False, 1.0, card) for r in range(4)]) for i in range(2))
+    hem3 = make_mesh(8, limb_parallel=2, hosts=2, replicate_keys=True, devices=ranks)
+    check(hem3.host_size == 2 and hem3.batch_size == 4 and hem3.limb_size == 2, "the 3-axis mesh's shape")
+    bev3, one = BatchEvaluator(ctx, hem3), BatchEvaluator(ctx)
+    rk3 = bev3.ev.shard_keys(rk)
+    check(all(s.shape == rk.key(2)["c0"].shape for s in rk3.key(2)["c0"].shards),
+          "replicated keys: a rank does not hold the whole key")
+    prod = bev3.multiply(bev3.shard(b1), bev3.shard(b2)).unshard()
+    check(torch.equal(prod.data, one.multiply(b1, b2).data), "the 3-axis mesh's BFV product differs")
+    rot = bev3.rotate_rows(bev3.shard(b1), 1, gk).unshard()
+    check(torch.equal(rot.data, one.rotate_rows(b1, 1, gk).data), "the 3-axis mesh's BFV rotation differs")
+    relin = bev3.relinearize(bev3.multiply(bev3.shard(b1), bev3.shard(b2)), rk3).unshard()
+    check(torch.equal(relin.data, bfv_outs[n].data[:4]), "the 3-axis mesh's BFV request differs from phase 11's")
+    print(f"[mesh bfv N={n}] (host 2, data 2, limb 2) mesh, replicated keys (every rank holds the whole key): "
+          f"multiply, rotate_rows(1) and multiply -> relinearize of 4 requests equal to the unsharded batch and "
+          f"phase 11's; {time.perf_counter() - t_c:.1f} s")
+    del ctx, rk, rk3, gk, b1, b2, prod, rot, relin, bev3, one
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(8, devices=ranks)
+    torch.cuda.synchronize()
+    print(f"[dryrun] dryrun_multichip(8, devices=[{str(card)!r}] * 8), its BFV part included: OK in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) SEAL_TPU_DEBUG=1 on the card --------------------------------------
+    ctx4, cts4, rk4, outs4 = ckks
+    ev4 = Evaluator(ctx4)
+    a, b = cts4[0]
+    bctx = golden.bfv_context(golden.BFV_N, card)
+    bkey = relin_keys_from_numpy([golden.key_inputs(bctx, golden.GOLDEN_KEY_SEED)], bctx.key_parms_id, card).key(2)
+    x, y = (u64_from_numpy(d, card) for d in golden.request_inputs(bctx, golden.GOLDEN_REQUEST_SEED))
+    bfv_fn = build_bfv_mult_relin(bctx)
+    requests_debug = (("CKKS N=8192 (phase 4's request 0)", lambda: ev4.rescale_to_next(ev4.relinearize(
+                          ev4.multiply(a, b), rk4)).data, (5, 1, 0), outs4[0].data),
+                      ("BFV N=8192 (phase 11's request 0)", lambda: bfv_fn(x, y, bkey["c0"], bkey["c1"]), (4, 1, 0),
+                       bfv_outs[golden.BFV_N].data[0]))
+    before = os.environ.get("SEAL_TPU_DEBUG")
+    for label, fn, launches_expected, want in requests_debug:
+        runs = {}
+        for mode in ("unset", "1"):
+            if mode == "1":
+                os.environ["SEAL_TPU_DEBUG"] = "1"
+            else:
+                os.environ.pop("SEAL_TPU_DEBUG", None)
+            try:
+                fn()                                       # warm-up
+                got, launches = counted(fn)
+                runs[mode] = (got, launches, timed(fn, 1, runs=5))
+            finally:
+                if before is None:
+                    os.environ.pop("SEAL_TPU_DEBUG", None)
+                else:
+                    os.environ["SEAL_TPU_DEBUG"] = before
+        for mode, (got, launches, _) in runs.items():
+            check(launches == launches_expected, f"debug mode {mode}, {label}: launched (A, B, stage) {launches}; "
+                                                 f"expected {launches_expected}")
+            check(torch.equal(got, want), f"debug mode {mode}, {label}: the output differs")
+        plain_ms, debug_ms = sorted(runs["unset"][2])[2], sorted(runs["1"][2])[2]
+        print(f"[debug] {label}: with SEAL_TPU_DEBUG=1 every range check passes (NTT inputs and outputs around "
+              f"kernel A, the contraction's u128 margin and target around kernel B) and the output equals the run "
+              f"without it; launches of A, B, stage {runs['1'][1]} with the switch and {runs['unset'][1]} without "
+              f"(phase 4's and 11's per request); median of 5 runs {debug_ms:.3f} ms checked, {plain_ms:.3f} ms "
+              f"unchecked")
+    del bctx, bkey, x, y, bfv_fn
+
+    # ---- (e) the example twins on the card --------------------------------------
+    for name in NAMES:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(f"seal_tpu_torch.examples.{name}").main(card)
+        torch.cuda.synchronize()
+        last = buf.getvalue().rstrip().splitlines()[-1]
+        check(last.endswith("OK"), f"example {name} ended with {last!r}")
+        print(f"[examples] seal_tpu_torch/examples/{name}.py on {torch.cuda.get_device_name(0)}: passed its asserts "
+              f"in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (f) kernels C and D timed by CUDA events at N=32768 --------------------
+    n = 32768
+    moduli = tuple(m.value for m in CoeffModulus.bfv_default(n))
+    k, D = len(moduli), len(moduli) - 1
+    seeds = torch.randint(-(1 << 63), (1 << 63) - 1, (D, 8), dtype=torch.int64, device=card, generator=gen)
+    nw_noise = (64 + 6 * n + 7) // 8
+    nw_uniform = k * n + B.uniform_tail_words(n, moduli)[1]
+    public = expand_stream_words_cuda(seeds, nw_noise)[:, :8].contiguous()
+    words = expand_stream_words_cuda(public, nw_uniform)
+    q, mm, rhi = B.uniform_constants(moduli, card)
+    c_us = (profiling.device_time_us(lambda: expand_stream_words_cuda(seeds, nw_noise), lo=10, hi=60)
+            + profiling.device_time_us(lambda: expand_stream_words_cuda(public, nw_uniform), lo=10, hi=60))
+    bulk_us = profiling.device_time_us(lambda: uniform_bulk_cuda(words, n, q, mm, rhi), lo=10, hi=60)
+    cross = {"blake2xb": c_us / 1e3, "sample_uniform": bulk_us / 1e3}
+    for name, ms in cross.items():
+        print(f"[timers] {name} at N=32768 (one relinearization key's calls, D={D}, k_key={k}): "
+              f"profiling.device_time_us (CUDA events around bursts of 10 and 60 calls, the slope) "
+              f"{ms * 1e3:.2f} us against phase 14(a)'s profiler device time {sampling[name][n]['ms'] * 1e3:.2f} us "
+              f"and its back-to-back events {sampling[name][n]['events_ms'] * 1e3:.2f} us; {card_line}")
+    return entries, cross
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2691,12 +2961,12 @@ def main():
 
     # ---- phase 11: BFV at N=8192 and N=32768 -------------------------------
     t_bfv = time.time()
-    bfv = bfv_phase(gen)
+    bfv, bfv_outs = bfv_phase(gen)
     print(f"[bfv] phase 11 in {time.time() - t_bfv:.1f} s")
 
     # ---- phase 12: BGV at N=8192 and N=32768 -------------------------------
     t_bgv = time.time()
-    bgv = bgv_phase(gen)
+    bgv, bgv_outs = bgv_phase(gen)
     print(f"[bgv] phase 12 in {time.time() - t_bgv:.1f} s")
 
     # ---- phase 13: the wire path -------------------------------------------
@@ -2707,18 +2977,25 @@ def main():
     # ---- phase 14: device sampling -----------------------------------------
     sampling, client_ms, sampling_err = sampling_phase(gen)
 
+    # ---- phase 15: BFV and BGV on a mesh, and the tooling -------------------
+    t_mesh = time.time()
+    mesh, event_slopes = tooling_mesh_phase(torch.device("cuda", torch.cuda.current_device()), gen, card_line,
+                                            (ctx, cts, rk, outs), bfv_outs, bgv_outs, sampling)
+    print(f"[mesh] phase 15 in {time.time() - t_mesh:.1f} s")
+
     b_ntt, by_ntt = bound_ms(ntt_totals["bytes"], ntt_totals["ops"])
     kernels = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "seal_tpu_torch/csrc/ntt.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:227", "launches": launches["ntt"],
          "max_abs_err": max_err["ntt"], "ms": ntt_totals["ms"], "plain_ms": ntt_totals["plain_ms"],
-         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"], "bgv": bgv["ntt"], "wire": wire["ntt"]},
+         "bound_ms": b_ntt, "bound_by": by_ntt, "library_ms": None, "bfv": bfv["ntt"], "bgv": bgv["ntt"], "wire": wire["ntt"],
+         "mesh": mesh["ntt"]},
         {"name": "switch_key", "route": "cuda", "source": "seal_tpu_torch/csrc/switch_key.cu",
          "replaces": "seal_tpu/ops/pallas_switch_key.py:62", "launches": launches["switch_key"],
          "max_abs_err": max(max_err["switch_key"], sk_medium["max_abs_err"]), "ms": sk_main["ms"],
          "plain_ms": sk_main["plain_ms"], "bound_ms": sk_main["bound_ms"], "bound_by": sk_main["bound_by"],
          "library_ms": None, "n32768": sk_medium, "linear_layer": linear, "bfv": bfv["switch_key"],
-         "bgv": bgv["switch_key"], "wire": wire["switch_key"]},
+         "bgv": bgv["switch_key"], "wire": wire["switch_key"], "mesh": mesh["switch_key"]},
         {"name": "four_step_stage", "route": "cuda", "source": "seal_tpu_torch/csrc/four_step.cu",
          "replaces": "seal_tpu/ops/pallas_mxu_ntt.py:84", "launches": large_launches["four_step_stage"],
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
@@ -2735,6 +3012,8 @@ def main():
                  "plain_ms": main_key["plain_ms"], "bound_ms": main_key["bound_ms"], "bound_by": main_key["bound_by"],
                  "library_ms": None, "n32768": sampling[name][32768],
                  "phases": {phase: counts[name] for phase, counts in SAMPLING.items()}}
+        if name in event_slopes:
+            entry["n32768"] = dict(entry["n32768"], event_slope_ms=event_slopes[name])
         if name == "blake2xb":
             entry["client_ms"] = client_ms
         kernels["kernels"].append(entry)
@@ -2767,6 +3046,10 @@ def main():
           "plain version, read as u64; library_ms is null: no PyTorch call computes "
           "BLAKE2b or the samplers; client_ms holds phase 14(b)'s keygen and encryption ms on the device path and "
           "on the host path (SEAL_TPU_DEVICE_SAMPLING=0) at N=8192, 32768 and 65536")
+    print("[done] the mesh objects of kernels A and B: phase 15's launches per batch of the BFV request (multiply -> "
+          "relinearize) and the BGV request on the (data 4, limb 2) mesh of 8 ranks of the card at N=8192 (8 "
+          "requests) and N=32768 (4), with the ms and device-busy ms per request; event_slope_ms in the n32768 "
+          "objects of blake2xb and sample_uniform: phase 15(f)'s profiling.device_time_us of the same calls")
     print(card_line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from . import debug
 from .context import ContextData, SealContext
 from .ntt_tables import LimbTables
 from .params import SchemeType
@@ -146,6 +147,8 @@ def key_switch_contract(plan: KeySwitchPlan, target: torch.Tensor, key_c0: torch
         t_target, t_diag = NTT.inverse(target, plan.level(lo, hi)), target              # (..., D, n) < q
     else:
         t_target, t_diag = target, None
+    if debug.enabled():
+        _check_contract(plan, t_target, t_diag, lo, hi)
 
     # Select key columns (D', k_key, n) -> (D', Rn, n) and stack both
     # components: (2, D', Rn, n); the contraction uses rows [0, hi - lo).
@@ -153,6 +156,21 @@ def key_switch_contract(plan: KeySwitchPlan, target: torch.Tensor, key_c0: torch
                       key_c1.index_select(1, plan.key_columns)])
     return switch_key_contract(t_target, t_diag, kc, plan.sel_tables,
                                plan.need_reduce[lo:hi], row_offset=lo)
+
+
+def _check_contract(plan: KeySwitchPlan, t_target: torch.Tensor, t_diag, lo: int, hi: int) -> None:
+    """SEAL_TPU_DEBUG's contract of the contraction
+    (``seal_tpu/evaluator.py:606-615``): 64 lazy summands of 4q * q must
+    stay below 2^128 for the largest modulus in play (the Barrett guard
+    every 64 summands, ``util/defines.h:66``), and the target below 4q."""
+    max_q = max(plan.sel_tables.moduli_values)
+    if min(64, plan.D) * (4 * max_q) * max_q >= 1 << 128:
+        raise debug.RangeError(f"switch_key accumulator would overflow u128; D={plan.D} "
+                               f"max_q bits={max_q.bit_length()}")
+    four_q = 2 * plan.level(lo, hi).two_q
+    for x in (t_target, t_diag):
+        if x is not None:
+            debug.check_below(x, four_q, "switch_key target < 4q before the 128-bit accumulation")
 
 
 def key_switch_tail(plan: KeySwitchPlan, prod: torch.Tensor, ct_data: torch.Tensor,

@@ -44,7 +44,9 @@ class CKKSEncoder:
         self.context = context
         n = cd.parms.poly_modulus_degree
         self.n = n
-        self.slot_count = n >> 1
+        self.slots = n >> 1
+        #: reference-parity alias (CKKSEncoder::slot_count, ckks.h)
+        self.slot_count = self.slots
         logn = n.bit_length() - 1
         m = n << 1
         dev = context.device

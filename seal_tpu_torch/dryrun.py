@@ -13,14 +13,18 @@ import torch
 from . import golden, numth
 from .context import SealContext
 from .convert import ciphertext_from_numpy, galois_keys_from_numpy, relin_keys_from_numpy, u64_from_numpy
+from .encoders import BatchEncoder
+from .encryptor import Encryptor
 from .evaluator import Evaluator
-from .modulus import CoeffModulus, Modulus, SecurityLevel
+from .keygen import KeyGenerator
+from .modulus import CoeffModulus, Modulus, PlainModulus, SecurityLevel
 from .ntt_tables import build_four_step_tables, build_limb_tables
 from .ops import ntt as NTT
 from .params import EncryptionParameters, SchemeType
 from .parallel.batch import BatchEvaluator, CiphertextBatch
 from .parallel.dist_ntt import DistNTT
 from .parallel.mesh import DeviceMesh, HEMesh, make_mesh
+from .random import PRNGType, UniformRandomGeneratorFactory
 
 
 def _check(ok: bool, what: str) -> None:
@@ -65,6 +69,34 @@ def _batched_step(ctx: SealContext, hem: HEMesh, batch: int) -> None:
                f"rotated request {r} of the batch differs from the single-ciphertext evaluator")
 
 
+def _bfv_step(hem: HEMesh, batch: int) -> None:
+    """The sharded BFV part: the BEHZ square of ``batch`` encryptions and
+    ``apply_galois(b, 3, gk)`` (a rotation by one step) at N=64, bits [40,
+    30, 30, 30, 40], keys and encryptions from a seeded BLAKE2XB factory,
+    each equal to the unsharded batch."""
+    parms = EncryptionParameters(SchemeType.BFV)
+    parms.set_poly_modulus_degree(64)
+    parms.set_coeff_modulus(CoeffModulus.create(64, [40, 30, 30, 30, 40]))
+    parms.set_plain_modulus(PlainModulus.batching(64, 20))
+    parms.set_random_generator(UniformRandomGeneratorFactory(PRNGType.BLAKE2XB, (9,) * 8))
+    ctx = SealContext(parms, True, SecurityLevel.NONE, device=hem.mesh.device(0))
+    kg = KeyGenerator(ctx)
+    gk = kg.create_galois_keys([3])
+    enc = Encryptor(ctx, secret_key=kg.secret_key)
+    be = BatchEncoder(ctx)
+    t = parms.plain_modulus.value
+    cts = [enc.encrypt_symmetric(be.encode(np.arange(i, i + 64, dtype=np.uint64) % t)) for i in range(batch)]
+    b = CiphertextBatch.from_ciphertexts(cts)
+    sharded = BatchEvaluator(ctx, hem)
+    one = BatchEvaluator(ctx)
+    prod = sharded.multiply(sharded.shard(b), sharded.shard(b)).unshard()
+    _check(torch.equal(prod.data, one.multiply(b, b).data),
+           f"the BFV product on the {hem.mesh.shape} mesh differs from the unsharded batch")
+    rot = sharded.apply_galois(sharded.shard(b), 3, gk).unshard()
+    _check(torch.equal(rot.data, one.apply_galois(b, 3, gk).data),
+           f"the BFV rotation on the {hem.mesh.shape} mesh differs from the unsharded batch")
+
+
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> None:
     """Run and check one sharded step over an ``n_devices``-rank mesh.
 
@@ -82,12 +114,11 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> None
        the forward transform equal to the single-device transform
        (``ops.ntt.forward``: kernel A on a card; the distributed one runs
        the stage and corner-turn kernels there);
-    3. for n >= 8 and n % 4 == 0, the batched step and the rotation on the
-       (host=2, data, limb=2) mesh with replicated keys.
-
-    The JAX twin also runs a sharded BFV multiply, which waits for BFV on
-    a mesh (ROADMAP.md queue 1, item 13); its rotation is a BFV one, and
-    the CKKS rotation above stands for it.
+    3. the sharded BFV multiply (a square) of 2 x (data ranks) seeded
+       encryptions and ``apply_galois(b, 3, gk)`` on the mesh of part 1,
+       each equal to the unsharded batch;
+    4. for n >= 8 and n % 4 == 0, the batched CKKS step and the rotation on
+       the (host=2, data, limb=2) mesh with replicated keys.
     """
     limb = 2 if n_devices % 2 == 0 else 1
     hem = make_mesh(n_devices, limb_parallel=limb, devices=devices)
@@ -99,6 +130,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> None
     parms.set_coeff_modulus(CoeffModulus.create(64, [40, 30, 30, 30, 40]))
     ctx = SealContext(parms, True, SecurityLevel.NONE, device=device)
     _batched_step(ctx, hem, 2 * hem.batch_size)
+    _bfv_step(hem, 2 * hem.batch_size)
 
     n_big = 8192
     mods = [Modulus(p) for p in numth.get_primes(2 * n_big, 40, 2)]

@@ -18,16 +18,13 @@ built once and kept in ``self._plans``.
 
 The ring bodies live in ``ckks_bodies.py`` (the convolution, the key
 switch of either form with its CKKS, BFV and BGV tails, the Galois body)
-and ``bfv_bodies.py`` (the BEHZ multiply), their mesh versions in
-``parallel/sharded.py``.  On the card
+and ``bfv_bodies.py`` (the BEHZ multiply), their mesh versions, for all
+three schemes, in ``parallel/sharded.py``.  On the card
 every NTT and the key-switch contraction launch the hand-written kernels
 (``ops/cuda_ntt.py``, ``ops/cuda_switch_key.py``); the Galois permutation
 is one ``index_select``, and the rest is elementwise mod-q arithmetic in
 plain PyTorch.  Inside ``ops.ntt.plain_on_card()`` the plain PyTorch
 versions run on the card as well, to check the kernels.
-
-BFV and BGV data sharded over a mesh raise ``NotImplementedError`` naming
-ROADMAP.md item 13.
 """
 
 from __future__ import annotations
@@ -107,18 +104,19 @@ def _balance_correction_factors(factor1: int, factor2: int, t: int):
 
 
 def add_sub_body(cd: ContextData, factor1: int, factor2: int, is_add: bool):
-    """(correction factor, fn(x, y, q)) of add or sub on operands with
-    correction factors ``factor1`` and ``factor2``: BGV operands whose
-    factors differ are first multiplied by the balancing e1 and e2 mod q_i
-    (evaluator.cpp:197-216), so both carry the factor returned."""
+    """(correction factor, fn(x, y, t)) of add or sub on operands with
+    correction factors ``factor1`` and ``factor2``, ``t`` the tables of the
+    data's limbs: BGV operands whose factors differ are first multiplied by
+    the balancing e1 and e2 mod q_i (evaluator.cpp:197-216), so both carry
+    the factor returned."""
     if cd.parms.scheme != SchemeType.BGV or factor1 == factor2:
-        return factor1, lambda x, y, q: add_sub_padded(x, y, q, is_add)
+        return factor1, lambda x, y, t: add_sub_padded(x, y, t.q, is_add)
     f, e1, e2 = _balance_correction_factors(factor1, factor2, cd.parms.plain_modulus.value)
-    qv = cd.coeff_modulus_values
 
-    def balanced(x, y, q):
-        times = lambda d, e: U.mul_mod_shoup(d, *_cshoup([e % qi for qi in qv], qv, d.device), q)
-        return add_sub_padded(times(x, e1), times(y, e2), q, is_add)
+    def balanced(x, y, t):
+        qv = t.moduli_values
+        times = lambda d, e: U.mul_mod_shoup(d, *_cshoup([e % qi for qi in qv], qv, d.device), t.q)
+        return add_sub_padded(times(x, e1), times(y, e2), t.q, is_add)
 
     return f, balanced
 
@@ -145,11 +143,12 @@ class Evaluator:
         the op, so latency-critical pipelines may turn it off.
 
         ``mesh`` (an ``HEMesh``, ``parallel/mesh.py``) makes the evaluator
-        mesh-aware: ciphertexts and keys placed with :meth:`shard` and
-        :meth:`shard_keys` have their RNS limbs split over the mesh's limb
-        axis, and the ops then run on every rank's limbs, with the
-        key-switch sum and the rescale's last limb exchanged between the
-        ranks (``parallel/sharded.py``).  Without a mesh, or on tensors that
+        mesh-aware for all three schemes: ciphertexts and keys placed with
+        :meth:`shard` and :meth:`shard_keys` have their RNS limbs split over
+        the mesh's limb axis, and the ops then run on every rank's limbs,
+        with the key-switch sum, BFV's base-conversion sums and the last
+        limb of a modulus switch exchanged between the ranks
+        (``parallel/sharded.py``).  Without a mesh, or on tensors that
         are not sharded, the ops run on one device; both give the same bits.
         """
         if not context.parameters_set:
@@ -194,10 +193,7 @@ class Evaluator:
             raise ValueError("ciphertext is not valid for encryption parameters (contains a seed)")
         if ct.size < 2:
             raise ValueError("ciphertext is empty or invalid")
-        if isinstance(ct.data, ShardedTensor):
-            if cd.parms.scheme in (SchemeType.BFV, SchemeType.BGV):
-                raise sharded.mesh_not_ported(cd.parms.scheme)
-        elif ct.data.device != self.context.device:
+        if not isinstance(ct.data, ShardedTensor) and ct.data.device != self.context.device:
             raise ValueError(f"ciphertext lies on {ct.data.device}, the context on {self.context.device}")
         return cd
 
@@ -219,11 +215,12 @@ class Evaluator:
         return self.context.first_context_data().parms.scheme
 
     def _elementwise(self, cd: ContextData, data, fn, other=None):
-        """fn(x, y, q) on the data's limbs (y None for a unary op), on one
-        device or on each rank's limbs of sharded data."""
+        """fn(x, y, t) on the data's limbs with the level's tables ``t`` of
+        them (y None for a unary op), on one device or on each rank's limbs
+        of sharded data."""
         if isinstance(data, ShardedTensor) or isinstance(other, ShardedTensor):
             return sharded.elementwise(self._plan, cd, data, fn, other)
-        return fn(data, other, cd.limb_tables().q)
+        return fn(data, other, cd.limb_tables())
 
     def _limbwise(self, cd: ContextData, data, fn):
         """fn(x, t, lo, hi) on the data's limbs [lo, hi) with the level's
@@ -239,7 +236,7 @@ class Evaluator:
     def negate(self, ct: Ciphertext) -> Ciphertext:
         cd = self._cd(ct)
         out = ct.copy()
-        out.data = self._elementwise(cd, ct.data, lambda x, _, q: U.neg_mod(x, q))
+        out.data = self._elementwise(cd, ct.data, lambda x, _, t: U.neg_mod(x, t.q))
         self._check_transparent(out)
         return out
 
@@ -303,7 +300,7 @@ class Evaluator:
         cd = self._cd(ct1)
         self._cd(ct2)
         out = ct1.copy()
-        out.data = bfv_bodies.multiply(ct1.data, ct2.data, cd)
+        out.data = bfv_product(cd, ct1.data, ct2.data)
         return out
 
     def _ntt_multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
@@ -315,10 +312,7 @@ class Evaluator:
         cd = self._cd(ct1)
         self._cd(ct2)
         out = ct1.copy()
-        if isinstance(ct1.data, ShardedTensor) or isinstance(ct2.data, ShardedTensor):
-            out.data = sharded.multiply(self._plan, cd, ct1.data, ct2.data)
-        else:
-            out.data = convolve(ct1.data, ct2.data, cd.limb_tables())
+        out.data = ntt_product(self._plan, cd, ct1.data, ct2.data)
         if cd.parms.scheme == SchemeType.BGV:
             out.correction_factor = ct1.correction_factor * ct2.correction_factor % cd.parms.plain_modulus.value
             return out
@@ -401,24 +395,20 @@ class Evaluator:
             raise ValueError("end of modulus switching chain reached")
         if scheme == SchemeType.BFV:
             # divide and round by q_last on the coefficients; the scale stays
-            return Ciphertext(R.divide_and_round_q_last(ct.data, cd.rns_tool), next_cd.parms_id, False,
-                              ct.scale, ct.correction_factor)
+            return Ciphertext(switch_last_prime(cd, ct.data), next_cd.parms_id, False, ct.scale,
+                              ct.correction_factor)
         if scheme == SchemeType.BGV:
             # both polys in one call: one launch of kernel A per transform
-            return Ciphertext(R.mod_t_and_divide_q_last_ntt(ct.data, cd.rns_tool, cd.limb_tables()),
-                              next_cd.parms_id, True, ct.scale, bgv_switched_factor(cd, ct.correction_factor))
+            return Ciphertext(switch_last_prime(cd, ct.data), next_cd.parms_id, True, ct.scale,
+                              bgv_switched_factor(cd, ct.correction_factor))
         # both the current and the destination scale must stay normal and
         # in bounds (evaluator.cpp:1232-1238)
         if not _is_scale_within_bounds(ct.scale, cd) or not _is_scale_within_bounds(
             ct.scale / cd.coeff_modulus_values[-1], next_cd
         ):
             raise ValueError("scale out of bounds")
-        if isinstance(ct.data, ShardedTensor):
-            data = sharded.rescale(cd, ct.data)
-        else:
-            data = R.divide_and_round_q_last_ntt(ct.data, cd.rns_tool, cd.limb_tables())
         return Ciphertext(
-            data=data,
+            data=switch_last_prime(cd, ct.data),
             parms_id=next_cd.parms_id,
             is_ntt_form=True,
             scale=ct.scale / cd.coeff_modulus_values[-1],
@@ -734,6 +724,37 @@ def rotate_by_steps(apply_galois, tool, x, steps: int, galois_keys: GaloisKeys):
     for s in naf_steps:
         x = rotate_by_steps(apply_galois, tool, x, s, galois_keys)
     return x
+
+
+def bfv_product(cd: ContextData, d1, d2):
+    """BFV's BEHZ product of two ciphertexts' or batches' data, on one
+    device or on a mesh; ``d2 is d1`` squares."""
+    if isinstance(d1, ShardedTensor) or isinstance(d2, ShardedTensor):
+        return sharded.bfv_multiply(cd, d1, d2)
+    return bfv_bodies.multiply(d1, d2, cd)
+
+
+def ntt_product(plan_for, cd: ContextData, d1, d2):
+    """CKKS's and BGV's product: the dyadic convolution of NTT-form data,
+    on one device or on each rank's limbs."""
+    if isinstance(d1, ShardedTensor) or isinstance(d2, ShardedTensor):
+        return sharded.multiply(plan_for, cd, d1, d2)
+    return convolve(d1, d2, cd.limb_tables())
+
+
+def switch_last_prime(cd: ContextData, data):
+    """The data at ``cd``'s level switched to the next by its last prime:
+    the CKKS rescale, BFV's divide-and-round on the coefficients, BGV's
+    mod-t switch (its correction factor: :func:`bgv_switched_factor`); on
+    one device or on a mesh."""
+    if isinstance(data, ShardedTensor):
+        return sharded.mod_switch(cd, data)
+    scheme = cd.parms.scheme
+    if scheme == SchemeType.BFV:
+        return R.divide_and_round_q_last(data, cd.rns_tool)
+    if scheme == SchemeType.BGV:
+        return R.mod_t_and_divide_q_last_ntt(data, cd.rns_tool, cd.limb_tables())
+    return R.divide_and_round_q_last_ntt(data, cd.rns_tool, cd.limb_tables())
 
 
 def drop_limbs(data, k_next: int):

@@ -21,7 +21,9 @@ dispatch of ``seal_tpu/ops/ntt.py:90-115,155-229``):
 
 Nothing falls back: a tensor on the card launches a kernel or raises.  Both
 kernels' outputs are reduced to [0, q), as the JAX package's Pallas
-kernels' are, even when ``lazy`` is asked for.
+kernels' are, even when ``lazy`` is asked for.  With ``SEAL_TPU_DEBUG=1``
+(``debug.py``) the two wrappers check the reference's range contracts
+(``util/ntt.h:195-340``) on their input and output, around the kernel.
 
 :func:`plain_on_card` is the one switch between the card's kernels and
 their plain versions: inside it, every entry point of the port (keygen,
@@ -38,6 +40,7 @@ import contextlib
 
 import torch
 
+from .. import debug
 from ..ntt_tables import LimbTables, four_step_tables_for
 from . import u64 as U
 from .cuda_four_step import stage_cuda
@@ -134,20 +137,46 @@ def ntt_inverse(x: torch.Tensor, t: LimbTables, lazy: bool = False) -> torch.Ten
 
 
 def forward(x: torch.Tensor, t: LimbTables, lazy: bool = False) -> torch.Tensor:
-    """Forward NTT on the tensor's device: the card's kernel or the butterflies."""
+    """Forward NTT on the tensor's device: the card's kernel or the
+    butterflies.  Input in [0, 4q); output in [0, q), or [0, 4q) when
+    ``lazy``."""
+    checked = debug.enabled()
+    if checked:
+        debug.check_below(x, 2 * t.two_q, "ntt_forward input < 4q (ntt.h:200-209)")
     if use_kernels(x):
         if t.log_n <= MAX_LOG_N:
-            return ntt_cuda(x, t, inverse=False)
-        _check_shape(x, t)
-        return four_step_forward(x.contiguous(), four_step_tables_for(t), stage=stage_cuda)
-    return ntt_forward(x, t, lazy)
+            y = ntt_cuda(x, t, inverse=False)
+        else:
+            _check_shape(x, t)
+            y = four_step_forward(x.contiguous(), four_step_tables_for(t), stage=stage_cuda)
+    else:
+        y = ntt_forward(x, t, lazy)
+    if checked:
+        if lazy:
+            debug.check_below(y, 2 * t.two_q, "ntt_forward_lazy output < 4q")
+        else:
+            debug.check_below(y, t.q, "ntt_forward output < q")
+    return y
 
 
 def inverse(x: torch.Tensor, t: LimbTables, lazy: bool = False) -> torch.Tensor:
-    """Inverse NTT on the tensor's device: the card's kernel or the butterflies."""
+    """Inverse NTT on the tensor's device: the card's kernel or the
+    butterflies.  Input in [0, 2q); output in [0, q), or [0, 2q) when
+    ``lazy``."""
+    checked = debug.enabled()
+    if checked:
+        debug.check_below(x, t.two_q, "ntt_inverse input < 2q (ntt.h:298-307)")
     if use_kernels(x):
         if t.log_n <= MAX_LOG_N:
-            return ntt_cuda(x, t, inverse=True)
-        _check_shape(x, t)
-        return four_step_inverse(x.contiguous(), four_step_tables_for(t), stage=stage_cuda)
-    return ntt_inverse(x, t, lazy)
+            y = ntt_cuda(x, t, inverse=True)
+        else:
+            _check_shape(x, t)
+            y = four_step_inverse(x.contiguous(), four_step_tables_for(t), stage=stage_cuda)
+    else:
+        y = ntt_inverse(x, t, lazy)
+    if checked:
+        if lazy:
+            debug.check_below(y, t.two_q, "ntt_inverse_lazy output < 2q")
+        else:
+            debug.check_below(y, t.q, "ntt_inverse output < q")
+    return y

@@ -13,13 +13,22 @@ exact conversion q -> {t} ``exact_convert_array`` with its decryption tail
 ``decrypt_modt``, and the mod-t modulus switch
 ``mod_t_and_divide_q_last_ntt``.  Each function mirrors the JAX package's
 arithmetic step for step on int64 tensors, so the residues are the same
-bits.  The JAX package's int8 digit-plane contraction
-(``_convert_contraction_mxu``) is a TPU workaround and is not ported: the
-conversion's contraction here is plain and exact (:func:`_contract`).
+bits.
+
+What reads every limb has a limb-range form for a rank of a mesh that
+holds limbs [lo, hi): the conversion's partial sum over its own input
+limbs (``fast_convert_array(x, conv, lo)``), which the limb group adds mod
+p, and the BEHZ steps built on it; the modulus switches' ``*_limbs`` forms
+take the rank's own limbs and the broadcast last limb.
+
+The JAX package's int8 digit-plane contraction (``_convert_contraction_mxu``)
+is a TPU workaround and is not ported: the conversion's contraction here is
+plain and exact (:func:`_contract`).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Sequence, Tuple
 
 import torch
@@ -168,11 +177,22 @@ def divide_and_round_q_last(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
     ``x``: (..., k, n) over base q; returns (..., k-1, n) in [0, q_i).
     """
     k = tool.base_q.size
-    c = _rescale_constants(tool, x.device)
-    last_plus = U.add_mod(x[..., k - 1:, :], c.half, c.q_last)
-    temp = U.sub_mod(U.barrett_reduce_64(last_plus, c.rest_q, c.rest_ratio_hi), c.half_mod, c.rest_q)
-    diff = U.sub_mod(x[..., :k - 1, :], temp, c.rest_q)
-    return U.mul_mod_shoup(diff, c.inv_op, c.inv_qt, c.rest_q)
+    return divide_and_round_q_last_limbs(x[..., :k - 1, :], x[..., k - 1:, :], 0, tool)
+
+
+def divide_and_round_q_last_limbs(x_rest: torch.Tensor, x_last: torch.Tensor, lo: int,
+                                  tool: HostRNSTool) -> torch.Tensor:
+    """Limbs [lo, lo + x_rest.shape[-2]) of BFV's modulus switch, from those
+    limbs of the coefficient-form input and its last limb ``x_last``
+    (..., 1, n), as :func:`divide_and_round_q_last_ntt_limbs` for the
+    rescale."""
+    hi = lo + x_rest.shape[-2]
+    c = _rescale_constants(tool, x_rest.device)
+    rest_q = c.rest_q[lo:hi]
+    last_plus = U.add_mod(x_last, c.half, c.q_last)
+    temp = U.sub_mod(U.barrett_reduce_64(last_plus, rest_q, c.rest_ratio_hi[lo:hi]), c.half_mod[lo:hi], rest_q)
+    diff = U.sub_mod(x_rest, temp, rest_q)
+    return U.mul_mod_shoup(diff, c.inv_op[lo:hi], c.inv_qt[lo:hi], rest_q)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +209,8 @@ _SUM_WINDOW = 256
 class _ConvertConstants:
     """Device constants of one converter: the input's Shoup scaling, the
     change matrix as 16-bit digits (4, k_out, k_in, 1), and the output
-    moduli with their Barrett ratios."""
+    moduli with their Barrett ratios.  :meth:`cut` gives those of some
+    input limbs and output rows."""
 
     def __init__(self, conv: HostBaseConverter, device):
         ib, ob = conv.ibase, conv.obase
@@ -203,11 +224,33 @@ class _ConvertConstants:
         self.iratio_hi = _c(conv.iratio_hi, device)
         self.q_mod_o0 = _cshoup([conv.q_mod_obase0], ob.values[:1], device)
 
+    def cut(self, lo: int, hi: int, rows) -> "_ConvertConstants":
+        """The constants of input limbs [lo, hi) and of the output rows
+        ``rows`` (a tuple of indices, or None for every row)."""
+        out = copy.copy(self)
+        out.inv_op, out.inv_qt, out.iq = self.inv_op[lo:hi], self.inv_qt[lo:hi], self.iq[lo:hi]
+        out.digits = self.digits[:, :, lo:hi]
+        if rows is not None:
+            index = torch.tensor(rows, device=self.oq.device)
+            out.digits = out.digits.index_select(1, index)
+            out.oq, out.oratio_lo, out.oratio_hi = (a.index_select(0, index)
+                                                    for a in (self.oq, self.oratio_lo, self.oratio_hi))
+        return out
 
-def _convert_constants(conv: HostBaseConverter, device) -> _ConvertConstants:
-    key = ("convert", str(device))
+
+def _convert_constants(conv: HostBaseConverter, device, lo: int = 0, hi: int = None,
+                       rows=None) -> _ConvertConstants:
+    """The converter's constants on ``device``, cut to input limbs [lo, hi)
+    and output rows ``rows`` where they are given; built once each."""
+    whole_key = ("convert", str(device))
+    if whole_key not in conv.device_cache:
+        conv.device_cache[whole_key] = _ConvertConstants(conv, device)
+    hi = conv.ibase.size if hi is None else hi
+    if (lo, hi, rows) == (0, conv.ibase.size, None):
+        return conv.device_cache[whole_key]
+    key = whole_key + (lo, hi, rows)
     if key not in conv.device_cache:
-        conv.device_cache[key] = _ConvertConstants(conv, device)
+        conv.device_cache[key] = conv.device_cache[whole_key].cut(lo, hi, rows)
     return conv.device_cache[key]
 
 
@@ -248,13 +291,31 @@ def _contract(temp: torch.Tensor, c: _ConvertConstants) -> torch.Tensor:
     return out
 
 
-def fast_convert_array(x: torch.Tensor, conv: HostBaseConverter) -> torch.Tensor:
+def fast_convert_array(x: torch.Tensor, conv: HostBaseConverter, lo: int = 0, rows=None) -> torch.Tensor:
     """Fast base conversion: (..., k_in, n) over the converter's input base
     -> (..., k_out, n) over its output base (rns.cpp:418-465): scale by the
     (prescaled) inverse punctured products, then the exact contraction with
-    the change matrix."""
-    c = _convert_constants(conv, x.device)
+    the change matrix.
+
+    The partial form, for a rank of a mesh: ``x`` holds input limbs [lo,
+    lo + x.shape[-2]) only, and each output is the sum over those limbs
+    reduced to [0, p_j).  Each output of the whole conversion is
+    sum_i ([x_i q~_i]_{q_i} q_i* mod p_j) mod p_j, so the ranks' partials
+    added mod p_j (``parallel/shard_ops.gather_add_mod``) give its residue.
+    ``rows`` (a tuple of output indices) computes those outputs alone, in
+    that order."""
+    hi = lo + x.shape[-2]
+    c = _convert_constants(conv, x.device, lo, hi, rows)
+    if hi == lo:
+        return x.new_zeros(x.shape[:-2] + (c.oq.shape[0], x.shape[-1]))
     return _contract(U.mul_mod_shoup(x, c.inv_op, c.inv_qt, c.iq), c)
+
+
+def convert_moduli(conv: HostBaseConverter, device) -> torch.Tensor:
+    """The converter's output moduli as a (k_out, 1) tensor on ``device``:
+    what a limb group adds the partial sums of :func:`fast_convert_array`
+    mod."""
+    return _convert_constants(conv, device).oq
 
 
 def exact_convert_array(x: torch.Tensor, conv: HostBaseConverter) -> torch.Tensor:
@@ -332,10 +393,12 @@ def _behz_constants(tool: HostRNSTool, device) -> _BEHZConstants:
     return tool.device_cache[key]
 
 
-def fastbconv_m_tilde(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+def fastbconv_m_tilde(x: torch.Tensor, tool: HostRNSTool, lo: int = 0) -> torch.Tensor:
     """q -> Bsk U {m_tilde} of x * m_tilde (rns.cpp:1086-1131): one
-    conversion through the merged, m_tilde-prescaled converter."""
-    return fast_convert_array(x, tool.conv_q_to_Bsk_m_tilde_scaled)
+    conversion through the merged, m_tilde-prescaled converter, whose
+    m_tilde pre-scale is per limb.  With ``lo``, the partial sum over the q
+    limbs [lo, ...) that ``x`` holds (:func:`fast_convert_array`)."""
+    return fast_convert_array(x, tool.conv_q_to_Bsk_m_tilde_scaled, lo)
 
 
 def sm_mrq(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
@@ -354,25 +417,38 @@ def sm_mrq(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
 def fast_floor(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
     """floor(x / q), q U Bsk -> Bsk (rns.cpp:1041-1085): ``x`` (..., k + k_bsk, n)
     holds the q limbs first."""
-    c = _behz_constants(tool, x.device)
     k = tool.base_q.size
-    dest = fast_convert_array(x[..., :k, :], tool.conv_q_to_Bsk)
-    # (x_bsk + q - dest) * q^-1 mod Bsk; the lazy difference is fine for Shoup
-    return U.mul_mod_shoup(x[..., k:, :] + c.bsk - dest, *c.inv_q_bsk, c.bsk)
+    return fast_floor_finish(x[..., k:, :], fast_convert_array(x[..., :k, :], tool.conv_q_to_Bsk), tool)
 
 
-def fastbconv_sk(x: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+def fast_floor_finish(x_bsk: torch.Tensor, dest: torch.Tensor, tool: HostRNSTool) -> torch.Tensor:
+    """The floor's tail, per Bsk limb: (x_bsk + q - dest) q^-1 mod Bsk, with
+    ``dest`` the conversion q -> Bsk (``tool.conv_q_to_Bsk``) of all the q
+    limbs: on a mesh, the ranks' partial conversions added mod Bsk."""
+    c = _behz_constants(tool, x_bsk.device)
+    # the lazy difference is fine for Shoup
+    return U.mul_mod_shoup(x_bsk + c.bsk - dest, *c.inv_q_bsk, c.bsk)
+
+
+def fastbconv_sk(x: torch.Tensor, tool: HostRNSTool, lo: int = 0, hi: int = None) -> torch.Tensor:
     """Shenoy-Kumaresan conversion Bsk -> q (rns.cpp:903-978); the two
-    conversions (B -> q and B -> m_sk) run as one to q U {m_sk}."""
+    conversions (B -> q and B -> m_sk) run as one to q U {m_sk}.  ``x``
+    holds the whole Bsk part; the output is q limbs [lo, hi), all of them
+    by default, which is what a rank of a mesh writes."""
     c = _behz_constants(tool, x.device)
     k_B = tool.base_B.size
     k = tool.base_q.size
-    both = fast_convert_array(x[..., :k_B, :], tool.conv_B_to_q_m_sk)
-    dest = both[..., :k, :]
+    hi = k if hi is None else hi
+    rows = None if (lo, hi) == (0, k) else (*range(lo, hi), k)
+    both = fast_convert_array(x[..., :k_B, :], tool.conv_B_to_q_m_sk, rows=rows)
+    m = hi - lo
+    dest = both[..., :m, :]
+    q = c.q[lo:hi]
     # alpha = (temp + (m_sk - x_sk)) * B^-1 mod m_sk
-    alpha = U.mul_mod_shoup(both[..., k:, :] + c.m_sk - x[..., k_B:, :], *c.inv_B_msk, c.m_sk)
-    branch_hi = U.add_mod(U.mul_mod_shoup(U.neg_mod(alpha, c.m_sk), *c.prod_B_q, c.q), dest, c.q)
-    branch_lo = U.add_mod(U.mul_mod_shoup(alpha, *c.neg_prod_B_q, c.q), dest, c.q)
+    alpha = U.mul_mod_shoup(both[..., m:, :] + c.m_sk - x[..., k_B:, :], *c.inv_B_msk, c.m_sk)
+    branch_hi = U.add_mod(U.mul_mod_shoup(U.neg_mod(alpha, c.m_sk), c.prod_B_q[0][lo:hi], c.prod_B_q[1][lo:hi], q),
+                          dest, q)
+    branch_lo = U.add_mod(U.mul_mod_shoup(alpha, c.neg_prod_B_q[0][lo:hi], c.neg_prod_B_q[1][lo:hi], q), dest, q)
     return torch.where(alpha >= c.m_sk_half_up, branch_hi, branch_lo)
 
 

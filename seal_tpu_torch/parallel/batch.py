@@ -9,11 +9,11 @@ axes and the RNS limbs over the ``limb`` axis, and each rank runs the same
 bodies on its own ciphertexts and limbs (``parallel/sharded.py``; kernel B
 takes the batch on its grid's second axis).
 
-Every result equals the single-device evaluator's bit for bit.  BFV and
-BGV run on one device (BFV: the BEHZ multiply of ``bfv_bodies.py``, the key
-switch on coefficient form; BGV: the NTT-domain convolution, the key switch
-with BGV's tail, the mod-t switch, one correction factor per batch); their
-data on a mesh raises ``NotImplementedError`` naming ROADMAP.md item 13.
+Every result equals the single-device evaluator's bit for bit, for all
+three schemes on one device or a mesh (BFV: the BEHZ multiply of
+``bfv_bodies.py``, the key switch on coefficient form; BGV: the NTT-domain
+convolution, the key switch with BGV's tail, the mod-t switch, one
+correction factor per batch).
 """
 
 from __future__ import annotations
@@ -23,15 +23,13 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from .. import bfv_bodies
-from ..ckks_bodies import convolve, galois
+from ..ckks_bodies import galois
 from ..context import ContextData, SealContext
 from ..data import Ciphertext, GaloisKeys, Plaintext, RelinKeys
 from ..evaluator import (Evaluator, _is_scale_within_bounds, add_sub_body, add_sub_plain, are_same_scale,
-                         bgv_switched_factor, drop_limbs, galois_tables, multiply_plain_normal_body, multiply_tree,
-                         plain_term, rotate_by_steps)
+                         bfv_product, bgv_switched_factor, drop_limbs, galois_tables, multiply_plain_normal_body,
+                         multiply_tree, ntt_product, plain_term, rotate_by_steps, switch_last_prime)
 from ..ops import ntt as NTT
-from ..ops import rns as R
 from ..ops import u64 as U
 from ..params import ParmsId, SchemeType
 from . import sharded
@@ -98,8 +96,6 @@ class BatchEvaluator:
         cd = self.context.get_context_data(batch.parms_id)
         if cd is None:
             raise ValueError("ciphertexts are not valid for encryption parameters")
-        if cd.parms.scheme in (SchemeType.BFV, SchemeType.BGV) and isinstance(batch.data, ShardedTensor):
-            raise sharded.mesh_not_ported(cd.parms.scheme)
         return cd
 
     @staticmethod
@@ -132,20 +128,16 @@ class BatchEvaluator:
         if cd.parms.scheme == SchemeType.BFV:
             if b1.is_ntt_form or b2.is_ntt_form:
                 raise ValueError("BFV operands cannot be in NTT form")
-            return self._like(b1, bfv_bodies.multiply(b1.data, b2.data, cd))
+            return self._like(b1, bfv_product(cd, b1.data, b2.data))
         if not (b1.is_ntt_form and b2.is_ntt_form):
             raise ValueError(f"{cd.parms.scheme.name} operands must be in NTT form")
         if cd.parms.scheme == SchemeType.BGV:
             factor = b1.correction_factor * b2.correction_factor % cd.parms.plain_modulus.value
-            return self._like(b1, convolve(b1.data, b2.data, cd.limb_tables()), correction_factor=factor)
+            return self._like(b1, ntt_product(self.ev._plan, cd, b1.data, b2.data), correction_factor=factor)
         out_scale = b1.scale * b2.scale
         if not _is_scale_within_bounds(out_scale, cd):
             raise ValueError("scale out of bounds")
-        if isinstance(b1.data, ShardedTensor) or isinstance(b2.data, ShardedTensor):
-            data = sharded.multiply(self.ev._plan, cd, b1.data, b2.data)
-        else:
-            data = convolve(b1.data, b2.data, cd.limb_tables())
-        return CiphertextBatch(data, b1.parms_id, b1.is_ntt_form, out_scale, b1.correction_factor)
+        return self._like(b1, ntt_product(self.ev._plan, cd, b1.data, b2.data), scale=out_scale)
 
     def square(self, batch: CiphertextBatch) -> CiphertextBatch:
         return self.multiply(batch, batch)
@@ -173,12 +165,8 @@ class BatchEvaluator:
             raise ValueError("end of modulus switching chain reached")
         if not batch.is_ntt_form:
             raise ValueError("CKKS encrypted must be in NTT form")
-        if isinstance(batch.data, ShardedTensor):
-            data = sharded.rescale(cd, batch.data)
-        else:
-            data = R.divide_and_round_q_last_ntt(batch.data, cd.rns_tool, cd.limb_tables())
-        return CiphertextBatch(data, next_cd.parms_id, batch.is_ntt_form,
-                               batch.scale / cd.coeff_modulus_values[-1], batch.correction_factor)
+        return self._like(batch, switch_last_prime(cd, batch.data), parms_id=next_cd.parms_id,
+                          scale=batch.scale / cd.coeff_modulus_values[-1])
 
     def add(self, b1: CiphertextBatch, b2: CiphertextBatch) -> CiphertextBatch:
         return self._add_sub(b1, b2, True)
@@ -199,7 +187,7 @@ class BatchEvaluator:
 
     def negate(self, batch: CiphertextBatch) -> CiphertextBatch:
         cd = self._cd(batch)
-        data = self.ev._elementwise(cd, batch.data, lambda x, _, q: U.neg_mod(x, q))
+        data = self.ev._elementwise(cd, batch.data, lambda x, _, t: U.neg_mod(x, t.q))
         return CiphertextBatch(data, batch.parms_id, batch.is_ntt_form, batch.scale, batch.correction_factor)
 
     def _like(self, batch: CiphertextBatch, data: Data, **changes) -> CiphertextBatch:
@@ -213,7 +201,7 @@ class BatchEvaluator:
         """The evaluator's mod_switch_to_next over the batch: CKKS drops the
         last limb, BFV divides and rounds by it on the coefficients, BGV
         switches it away mod t in the NTT domain (every ciphertext and poly
-        of the batch in one call)."""
+        of the batch, or of a rank's share of it, in one call)."""
         cd = self._cd(batch)
         if cd.parms.scheme == SchemeType.CKKS:
             return self.mod_reduce_to_next(batch)
@@ -221,11 +209,11 @@ class BatchEvaluator:
         if next_cd is None:
             raise ValueError("end of modulus switching chain reached")
         self._check_form(batch, cd)
+        factor = batch.correction_factor
         if cd.parms.scheme == SchemeType.BGV:
-            return self._like(batch, R.mod_t_and_divide_q_last_ntt(batch.data, cd.rns_tool, cd.limb_tables()),
-                              parms_id=next_cd.parms_id,
-                              correction_factor=bgv_switched_factor(cd, batch.correction_factor))
-        return self._like(batch, R.divide_and_round_q_last(batch.data, cd.rns_tool), parms_id=next_cd.parms_id)
+            factor = bgv_switched_factor(cd, factor)
+        return self._like(batch, switch_last_prime(cd, batch.data), parms_id=next_cd.parms_id,
+                          correction_factor=factor)
 
     def mod_reduce_to_next(self, batch: CiphertextBatch) -> CiphertextBatch:
         """Drop the last limb (mod_reduce_to_next, evaluator.cpp:1597-1648)."""

@@ -24,7 +24,7 @@ from seal_tpu_torch import golden
 from seal_tpu_torch import serialization as S
 from seal_tpu_torch import valcheck
 from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, plaintext_from_numpy,
-                                    relin_keys_from_numpy, u64_to_numpy)
+                                    relin_keys_from_numpy, u64_from_numpy, u64_to_numpy)
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.modulus import Modulus
 from seal_tpu_torch.ntt_tables import build_limb_tables, four_step_tables_for
@@ -817,3 +817,91 @@ def test_blake2_wrappers_refuse_what_the_kernels_do_not_take():
         cbd_lifted_cuda(torch.zeros((1, 16), dtype=torch.int64), 8, q, 0)
     with pytest.raises(ValueError, match="stream words"):
         uniform_bulk_cuda(torch.zeros((1, 16), dtype=torch.int32), 8, q, q, q)
+
+
+# -- BFV and BGV on a mesh, debug mode and the event timers (the tooling) --
+
+def _mesh_request_inputs(ctx, n, requests, ntt):
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, ctx.device)
+    galois = [None] * n
+    galois[golden.BGV_GALOIS_ELT >> 1] = golden.galois_key_inputs(ctx, golden.BGV_GALOIS_SEED)
+    gk = galois_keys_from_numpy(galois, ctx.key_parms_id, ctx.device)
+    cts = [tuple(ciphertext_from_numpy(d, ctx.first_parms_id, ntt, 1.0, ctx.device)
+                 for d in golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED + r)) for r in range(requests)]
+    return rk, gk, [CiphertextBatch.from_ciphertexts([c[i] for c in cts]) for i in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["BFV", "BGV"])
+@pytest.mark.parametrize("mesh", [dict(limb_parallel=2), dict(limb_parallel=2, hosts=2, replicate_keys=True)])
+def test_bfv_bgv_mesh_bodies_on_the_card_match_one_device(card, scheme, mesh):
+    """multiply -> relinearize -> rotate_rows(1) -> mod_switch_to_next of 8
+    N=8192 requests on 8 ranks of the card, equal to the batch on one
+    device; BGV's correction factor too."""
+    from seal_tpu_torch.parallel.mesh import make_mesh
+
+    n = 8192
+    ctx = (golden.bfv_context if scheme == "BFV" else golden.bgv_context)(n, card)
+    rk, gk, (b1, b2) = _mesh_request_inputs(ctx, n, 8, scheme == "BGV")
+    bev = BatchEvaluator(ctx, make_mesh(8, devices=[card] * 8, **mesh))
+    got = golden.bgv_request(bev, bev.shard(b1), bev.shard(b2), rk, gk).unshard()
+    want = golden.bgv_request(BatchEvaluator(ctx), b1, b2, rk, gk)
+    assert torch.equal(got.data, want.data) and got.correction_factor == want.correction_factor
+
+
+@pytest.mark.cuda
+def test_debug_mode_on_the_card(card, monkeypatch):
+    """SEAL_TPU_DEBUG=1 around kernels A and B: a CKKS and a BFV request
+    pass every range check and give the outputs of the run without it; an
+    NTT operand at 4q raises before kernel A launches."""
+    from seal_tpu_torch import debug
+    from seal_tpu_torch.pipeline import build_bfv_mult_relin
+
+    ctx = _context(golden.GOLDEN_N, list(golden.GOLDEN_BITS), card)
+    rk = relin_keys_from_numpy([golden.key_inputs(ctx, golden.GOLDEN_KEY_SEED)], ctx.key_parms_id, card)
+    a, b = (ciphertext_from_numpy(d, ctx.first_parms_id, True, 2.0 ** 40, card)
+            for d in golden.request_inputs(ctx, golden.GOLDEN_REQUEST_SEED))
+    ev = Evaluator(ctx)
+    bctx = golden.bfv_context(golden.BFV_N, card)
+    key = relin_keys_from_numpy([golden.key_inputs(bctx, golden.GOLDEN_KEY_SEED)], bctx.key_parms_id, card).key(2)
+    x, y = (u64_from_numpy(d, card) for d in golden.request_inputs(bctx, golden.GOLDEN_REQUEST_SEED))
+    bfv = build_bfv_mult_relin(bctx)
+
+    def run():
+        return ev.rescale_to_next(ev.relinearize(ev.multiply(a, b), rk)).data, bfv(x, y, key["c0"], key["c1"])
+
+    monkeypatch.delenv("SEAL_TPU_DEBUG", raising=False)
+    plain = run()
+    monkeypatch.setenv("SEAL_TPU_DEBUG", "1")
+    before = (ntt_cuda.launches, switch_key_contract_cuda.launches)
+    checked = run()
+    assert (ntt_cuda.launches - before[0], switch_key_contract_cuda.launches - before[1]) == (9, 2)
+    assert all(torch.equal(p, c) for p, c in zip(plain, checked))
+    assert golden.digest(u64_to_numpy(checked[0])) == golden.GOLDEN_DIGEST
+    assert golden.digest(u64_to_numpy(checked[1])) == golden.BFV_DIGEST
+    t = ctx.first_context_data().limb_tables()
+    with pytest.raises(debug.RangeError, match="ntt_forward input < 4q"):
+        NTT.forward(2 * t.two_q.expand(-1, golden.GOLDEN_N).contiguous(), t)
+
+
+@pytest.mark.cuda
+def test_device_time_us_agrees_with_event_timing(card):
+    """profiling.device_time_us of kernel A against CUDA events around 200
+    back-to-back launches: within a factor of two (both read the card's
+    time where the kernel outlasts the host's launch)."""
+    from seal_tpu_torch import profiling
+
+    mods = CoeffModulus.create(32768, [60] * 16)
+    t = build_limb_tables(15, mods, device=card)
+    x = _uniform((2, 16, 32768), t.q * 4, card, 3)
+    us = profiling.device_time_us(lambda: ntt_cuda(x, t, False), lo=10, hi=60)
+    for _ in range(3):
+        ntt_cuda(x, t, False)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(200):
+        ntt_cuda(x, t, False)
+    end.record()
+    torch.cuda.synchronize()
+    events_us = start.elapsed_time(end) / 200 * 1e3
+    assert 0.5 * events_us < us < 2 * events_us, (us, events_us)

@@ -357,32 +357,42 @@ def _scheme_context(scheme):
 
 
 def test_bfv_contexts_raise_not_ported():
-    """BFV and BGV are ported on one device (tests/test_torch_bfv.py,
-    tests/test_torch_bgv.py); their data on a mesh raises naming ROADMAP
-    item 13."""
+    """BFV and BGV on a 2-rank limb mesh (one limb each): the mesh-aware
+    evaluator equals the evaluator without a mesh, method by method, on
+    uniform residues and keys; rotate_vector on BGV raises "unsupported
+    scheme"."""
     from seal_tpu_torch.parallel.mesh import make_mesh
 
-    bfv = _scheme_context(P.SchemeType.BFV)
-    mev = P.Evaluator(bfv, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
-    sharded = mev.shard(P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), bfv.first_parms_id, False, 1.0))
-    for call in (lambda: mev.multiply(sharded, sharded), lambda: mev.mod_switch_to_next(sharded),
-                 lambda: mev.negate(sharded)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
-    ctx = _scheme_context(P.SchemeType.BGV)
-    ev = P.Evaluator(ctx, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
-    ct = ev.shard(P.Ciphertext(torch.ones((2, 2, 64), dtype=torch.int64), ctx.first_parms_id, True, 1.0))
-    gk = P.GaloisKeys()
-    gk.parms_id = ctx.key_parms_id
-    gk.keys = [None] * 64
-    gk.keys[1] = {"c0": torch.zeros((2, 3, 64), dtype=torch.int64), "c1": torch.zeros((2, 3, 64), dtype=torch.int64)}
-    for call in (lambda: ev.rotate_rows(ct, 1, gk), lambda: ev.multiply(ct, ct),
-                 lambda: ev.multiply_plain(ct, P.Plaintext.from_coeffs([1])), lambda: ev.mod_switch_to_next(ct),
-                 lambda: ev.multiply_many([ct, ct], None), lambda: ev.add_plain(ct, P.Plaintext.from_coeffs([1]))):
-        with pytest.raises(NotImplementedError, match="BGV on a mesh .* item 13"):
-            call()
+    rng = np.random.default_rng(5)
+
+    def residues(moduli, lead):
+        return rng.integers(0, np.array(moduli, dtype=np.uint64)[:, None], (*lead, len(moduli), 64), dtype=np.uint64)
+
+    for scheme, ntt in ((P.SchemeType.BFV, False), (P.SchemeType.BGV, True)):
+        ctx = _scheme_context(scheme)
+        qv, key_q = ctx.first_context_data().coeff_modulus_values, ctx.key_context_data().coeff_modulus_values
+        key = lambda: tuple(residues(key_q, (len(qv),)) for _ in range(2))
+        rk = C.relin_keys_from_numpy([key()], ctx.key_parms_id, "cpu")
+        galois = [None] * 64
+        galois[1] = key()                     # element 3: rotate_rows(1)
+        gk = C.galois_keys_from_numpy(galois, ctx.key_parms_id, "cpu")
+        ev = P.Evaluator(ctx)
+        mev = P.Evaluator(ctx, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
+        ct = C.ciphertext_from_numpy(residues(qv, (2,)), ctx.first_parms_id, ntt, 1.0, "cpu", 3)
+        sharded = mev.shard(ct)
+        plain = P.Plaintext.from_coeffs([1, 2])
+        calls = {
+            "multiply": lambda e, c: e.multiply(c, c), "mod_switch_to_next": lambda e, c: e.mod_switch_to_next(c),
+            "negate": lambda e, c: e.negate(c), "rotate_rows": lambda e, c: e.rotate_rows(c, 1, gk),
+            "multiply_plain": lambda e, c: e.multiply_plain(c, plain),
+            "multiply_many": lambda e, c: e.multiply_many([c, c], rk), "add_plain": lambda e, c: e.add_plain(c, plain),
+        }
+        for name, call in calls.items():
+            got, want = call(mev, sharded), call(ev, ct)
+            assert torch.equal(got.data.unshard(), want.data), (scheme.name, name)
+            assert got.parms_id == want.parms_id and got.correction_factor == want.correction_factor
     with pytest.raises(ValueError, match="unsupported scheme"):
-        ev.rotate_vector(ct, 1, gk)
+        mev.rotate_vector(sharded, 1, gk)
 
 
 # -- (h) the surface ---------------------------------------------------------------

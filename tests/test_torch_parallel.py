@@ -281,31 +281,48 @@ def _scheme_context(scheme):
     return P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
 
 
+def _uniform_keys(ctx, rng):
+    """Relinearization keys and Galois keys for rotate_rows(1) and
+    rotate_columns, of uniform residues."""
+    qv, key_q = ctx.first_context_data().coeff_modulus_values, ctx.key_context_data().coeff_modulus_values
+    key = lambda: tuple(_residues(rng, key_q, (len(qv),)) for _ in range(2))
+    rk = relin_keys_from_numpy([key()], ctx.key_parms_id, "cpu")
+    galois = [None] * N
+    for elt in (3, 2 * N - 1):
+        galois[elt >> 1] = key()
+    return rk, galois_keys_from_numpy(galois, ctx.key_parms_id, "cpu")
+
+
 def test_unported_batch_methods_name_their_roadmap_item(state):
-    """BFV and BGV batches on a mesh name ROADMAP item 13 (both are ported
-    on one device, tests/test_torch_bfv.py and tests/test_torch_bgv.py)."""
+    """BFV and BGV batches on a (data 4, limb 2) mesh equal the batch on one
+    device, method by method; rotate_rows, rotate_columns and
+    multiply_many on CKKS raise "unsupported scheme"."""
     bev = BatchEvaluator(state["ctx"])
     b1, _ = _batches(state)
     for call in (lambda: bev.rotate_rows(b1, 1, None), lambda: bev.rotate_columns(b1, None),
                  lambda: bev.multiply_many([b1, b1], state["rk"])):
         with pytest.raises(ValueError, match="unsupported scheme"):
             call()
-    data = torch.zeros((2, 2, len(BITS) - 1, N), dtype=torch.int64)
-    bctx = _scheme_context(P.SchemeType.BFV)
-    mesh_bev = BatchEvaluator(bctx, make_mesh(8, limb_parallel=2, devices=CPU8))
-    sharded_batch = mesh_bev.shard(CiphertextBatch(data, bctx.first_parms_id, False))
-    for method, args in (("multiply", (sharded_batch,)), ("mod_switch_to_next", ()), ("negate", ())):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(mesh_bev, method)(sharded_batch, *args)
-    gctx = _scheme_context(P.SchemeType.BGV)
-    mesh_gev = BatchEvaluator(gctx, make_mesh(8, limb_parallel=2, devices=CPU8))
-    batch = mesh_gev.shard(CiphertextBatch(data, gctx.first_parms_id, True))
-    for method, args in (("multiply", (batch,)), ("rotate_rows", (1, None)), ("rotate_columns", (None,)),
-                         ("multiply_plain", (P.Plaintext.from_coeffs([1]),)), ("mod_switch_to_next", ())):
-        with pytest.raises(NotImplementedError, match="BGV on a mesh .* item 13"):
-            getattr(mesh_gev, method)(batch, *args)
-    with pytest.raises(NotImplementedError, match="BGV on a mesh .* item 13"):
-        mesh_gev.multiply_many([batch, batch], None)
+    rng = np.random.default_rng(13)
+    for scheme, ntt in ((P.SchemeType.BFV, False), (P.SchemeType.BGV, True)):
+        ctx = _scheme_context(scheme)
+        rk, gk = _uniform_keys(ctx, rng)
+        data = u64_from_numpy(_residues(rng, ctx.first_context_data().coeff_modulus_values, (8, 2)), "cpu")
+        batch = CiphertextBatch(data, ctx.first_parms_id, ntt, correction_factor=1 if scheme == P.SchemeType.BFV else 5)
+        one = BatchEvaluator(ctx)
+        mesh_bev = BatchEvaluator(ctx, make_mesh(8, limb_parallel=2, devices=CPU8))
+        sharded_batch = mesh_bev.shard(batch)
+        methods = [("multiply", (batch,)), ("mod_switch_to_next", ()), ("negate", ()),
+                   ("multiply_plain", (P.Plaintext.from_coeffs([1, 2]),)), ("rotate_rows", (1, gk)),
+                   ("rotate_columns", (gk,))]
+        for method, args in methods:
+            margs = tuple(sharded_batch if a is batch else a for a in args)
+            got = getattr(mesh_bev, method)(sharded_batch, *margs)
+            want = getattr(one, method)(batch, *args)
+            assert torch.equal(got.unshard().data, want.data), (scheme.name, method)
+            assert got.correction_factor == want.correction_factor and got.parms_id == want.parms_id
+        got = mesh_bev.multiply_many([sharded_batch, sharded_batch], rk)
+        assert torch.equal(got.unshard().data, one.multiply_many([batch, batch], rk).data), scheme.name
 
 
 # -- (f) the batched Galois, plaintext and transform methods ---------------------

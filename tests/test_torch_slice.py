@@ -193,8 +193,10 @@ def test_context_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_schemes_raise_not_implemented():
-    """Every scheme runs on one device now (BGV: tests/test_torch_bgv.py);
-    BGV data sharded over a mesh raises naming its ROADMAP item."""
+    """Every scheme runs on one device and on a mesh now (BGV:
+    tests/test_torch_bgv.py, tests/test_torch_mesh_bfv_bgv.py): BGV data
+    sharded over a 2-rank limb mesh multiplies to the product on one
+    device."""
     from seal_tpu_torch.parallel.mesh import make_mesh
 
     parms = P.EncryptionParameters(P.SchemeType.BGV)
@@ -203,10 +205,11 @@ def test_unported_schemes_raise_not_implemented():
     parms.set_plain_modulus(P.Modulus(65537))
     ctx = P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
     ev = Evaluator(ctx, mesh=make_mesh(2, limb_parallel=2, devices=["cpu"] * 2))
-    data = torch.ones((2, 2, 1024), dtype=torch.int64)
-    ct = ev.shard(P.Ciphertext(data, ctx.first_parms_id, True, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ev.multiply(ct, ct)
+    data = torch.arange(2 * 2 * 1024, dtype=torch.int64).reshape(2, 2, 1024)
+    ct = P.Ciphertext(data, ctx.first_parms_id, True, 1.0)
+    sharded = ev.shard(ct)
+    got = ev.multiply(sharded, sharded)
+    assert torch.equal(got.data.unshard(), Evaluator(ctx).multiply(ct, ct).data)
 
 
 def _medium_args(ctx):
