@@ -26,7 +26,10 @@ seeded BLAKE2XB factory, host sampling on both sides:
     ``golden.BFV_DIGEST``; the JAX package's side of it and of
     ``golden.BFV_MEDIUM_DIGEST`` (N=32768, ~4 minutes) is marked ``slow``.
 
-Every comparison is exact: BFV is integer arithmetic.
+The JAX package's answers to (a), (b) and (d) are frozen in
+``tests/data/jax_answers/`` (``tests/jax_answers.py``); the test marked
+``slow`` recomputes them.  Every comparison is exact: BFV is integer
+arithmetic.
 """
 
 import re
@@ -58,25 +61,31 @@ from seal_tpu_torch.modulus import PlainModulus
 from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
 from seal_tpu_torch.pipeline import build_bfv_mult_relin
 
+import jax_answers as JA
+
 N = 1024
 BITS = [40, 40, 40]
 SEED = (8, 7, 6, 5, 4, 3, 2, 1)
 STEPS = [1, -1, 4, 0]          # 0: the column swap; 3 has no key and rotates by NAF [-1, 4]
 
 
-def _sides():
-    t = JaxPlainModulus.batching(N, 20)
-    jp = JaxParameters(JaxScheme.BFV)
-    jp.set_poly_modulus_degree(N)
-    jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-    jp.set_plain_modulus(t)
-    jp.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
-    pp = P.EncryptionParameters(P.SchemeType.BFV)
-    pp.set_poly_modulus_degree(N)
-    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    pp.set_plain_modulus(PlainModulus.batching(N, 20))
-    pp.set_random_generator(C.factory_from_settings(*C.factory_to_settings(jp.random_generator)))
-    return JaxContext(jp, True, JaxSecurityLevel.NONE), P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+ANSWERS = JA.Answers(__file__)
+
+
+def _context(side):
+    if side == "jax":
+        parms = JaxParameters(JaxScheme.BFV)
+        parms.set_poly_modulus_degree(N)
+        parms.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
+        parms.set_plain_modulus(JaxPlainModulus.batching(N, 20))
+        parms.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
+        return JaxContext(parms, True, JaxSecurityLevel.NONE)
+    parms = P.EncryptionParameters(P.SchemeType.BFV)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    parms.set_plain_modulus(PlainModulus.batching(N, 20))
+    parms.set_random_generator(P.UniformRandomGeneratorFactory(P.PRNGType.BLAKE2XB, SEED))
+    return P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
 
 
 def _client(side, ctx, va, vb):
@@ -96,77 +105,73 @@ def _client(side, ctx, va, vb):
     return keys, be, a, b, seeded
 
 
-@pytest.fixture(scope="module")
-def env():
-    jctx, pctx = _sides()
-    t = pctx.first_context_data().parms.plain_modulus.value
+def _env(side):
+    """One package's context, keys, encoder, evaluator, and per level the
+    two ciphertexts, from its own client; host sampling."""
+    ctx = _context(side)
+    t = ctx.first_context_data().parms.plain_modulus.value
     rng = np.random.default_rng(5)
     va = rng.integers(0, t, size=N, dtype=np.uint64)
     vb = rng.integers(0, t, size=N, dtype=np.uint64)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jkeys, jbe, ja, jb, jseeded = _client("jax", jctx, va, vb)
-    pkeys, pbe, pa, pb, pseeded = _client("port", pctx, va, vb)
-    jev, pev = JaxEvaluator(jctx), P.Evaluator(pctx)
-    levels = {"first": {"jax": (ja, jb), "port": (pa, pb)},
-              "switched": {"jax": (jev.mod_switch_to_next(ja), jev.mod_switch_to_next(jb)),
-                           "port": (pev.mod_switch_to_next(pa), pev.mod_switch_to_next(pb))}}
-    return {"jctx": jctx, "pctx": pctx, "jev": jev, "pev": pev, "jkeys": jkeys, "pkeys": pkeys, "jbe": jbe,
-            "pbe": pbe, "va": va, "vb": vb, "t": t, "seeded": (jseeded, pseeded), "levels": levels}
+        keys, be, a, b, seeded = _client(side, ctx, va, vb)
+    is_jax = side == "jax"
+    ev = (JaxEvaluator if is_jax else P.Evaluator)(ctx)
+    levels = {"first": (a, b), "switched": (ev.mod_switch_to_next(a), ev.mod_switch_to_next(b))}
+    return {"side": side, "ctx": ctx, "ev": ev, "keys": keys, "be": be, "va": va, "vb": vb, "t": t,
+            "seeded": seeded, "levels": levels, "Plaintext": JaxPlaintext if is_jax else P.Plaintext,
+            "Encryptor": JaxEncryptor if is_jax else P.Encryptor,
+            "Decryptor": JaxDecryptor if is_jax else P.Decryptor}
 
 
-def _same(jout, pout):
-    if isinstance(jout, JaxPlaintext):
-        if jout.is_ntt_form:
-            assert pout.parms_id == jout.parms_id
-            np.testing.assert_array_equal(C.u64_to_numpy(pout.rns_data), JU.to_np_u64(jout.rns_data))
-        else:
-            np.testing.assert_array_equal(pout.coeff_data, jout.coeff_data)
-        return
-    np.testing.assert_array_equal(C.u64_to_numpy(pout.data), JU.to_np_u64(jout.data))
-    assert (pout.parms_id, pout.scale, pout.is_ntt_form) == (jout.parms_id, jout.scale, jout.is_ntt_form)
-
-
-def _same_keys(jk, pk):
-    assert pk.parms_id == jk.parms_id and len(pk.keys) == len(jk.keys)
-    for j, p in zip(jk.keys, pk.keys):
-        assert (j is None) == (p is None)
-        if j is not None:
-            for c in ("c0", "c1"):
-                np.testing.assert_array_equal(C.u64_to_numpy(p[c]), JU.to_np_u64(j[c]))
+@pytest.fixture(scope="module")
+def env():
+    """The port's side, built by its own client."""
+    return _env("port")
 
 
 # -- (a) the client ----------------------------------------------------------------
 
-def test_keys_equal_jax(env):
-    jk, pk = env["jkeys"], env["pkeys"]
-    np.testing.assert_array_equal(C.u64_to_numpy(pk["sk"].data), JU.to_np_u64(jk["sk"].data))
-    _same(jk["pk"].data, pk["pk"].data)
-    _same_keys(jk["rk"], pk["rk"])
-    _same_keys(jk["gk"], pk["gk"])
-    assert pk["gk"].has_key(2 * N - 1) and pk["gk"].has_key(3)
+def _keys_case(env):
+    keys = env["keys"]
+    return {"seed": np.array(SEED, dtype=np.uint64)}, {
+        "secret key": keys["sk"], "public key": keys["pk"], "relin keys": keys["rk"], "galois keys": keys["gk"]}
 
 
-def test_encryptions_equal_jax(env):
+def test_keys_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_keys_case(env))
+    assert env["keys"]["gk"].has_key(2 * N - 1) and env["keys"]["gk"].has_key(3)
+
+
+def _encryptions_case(env):
+    outs = {f"{level} {name}": ct for level in ("first", "switched")
+            for name, ct in zip("ab", env["levels"][level])}
+    outs["seeded"] = env["seeded"]
+    outs["seed"] = np.array(env["seeded"].seed_info.seed, dtype=np.uint64)
+    return {"a": env["va"], "b": env["vb"]}, outs
+
+
+def test_encryptions_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_encryptions_case(env))
+    assert not any(ct.is_ntt_form for level in env["levels"].values() for ct in level)
+
+
+def _decrypt_case(env):
+    dec = env["Decryptor"](env["ctx"], env["keys"]["sk"])
+    outs = {}
     for level in ("first", "switched"):
-        for j, p in zip(env["levels"][level]["jax"], env["levels"][level]["port"]):
-            _same(j, p)
-            assert not p.is_ntt_form
-    jseeded, pseeded = env["seeded"]
-    _same(jseeded, pseeded)
-    assert pseeded.seed_info.seed == jseeded.seed_info.seed
+        for name, ct, want in zip("ab", env["levels"][level], (env["va"], env["vb"])):
+            plain = dec.decrypt(ct)
+            np.testing.assert_array_equal(env["be"].decode(plain), want)
+            outs[f"{level} {name}"] = plain
+            outs[f"{level} {name} noise budget"] = budget = dec.invariant_noise_budget(ct)
+            assert budget > 0
+    return {f"{level} {name}": ct for level in ("first", "switched") for name, ct in zip("ab", env["levels"][level])}, outs
 
 
-def test_decrypt_decode_and_noise_budget_equal_jax(env):
-    jdec = JaxDecryptor(env["jctx"], env["jkeys"]["sk"])
-    pdec = P.Decryptor(env["pctx"], env["pkeys"]["sk"])
-    for level in ("first", "switched"):
-        for j, p, want in zip(env["levels"][level]["jax"], env["levels"][level]["port"], (env["va"], env["vb"])):
-            jpt, ppt = jdec.decrypt(j), pdec.decrypt(p)
-            _same(jpt, ppt)
-            np.testing.assert_array_equal(env["pbe"].decode(ppt), want)
-            budget = pdec.invariant_noise_budget(p)
-            assert budget == jdec.invariant_noise_budget(j) and budget > 0
+def test_decrypt_decode_and_noise_budget_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_decrypt_case(env))
 
 
 # -- (b) the evaluator surface ------------------------------------------------------
@@ -182,13 +187,11 @@ def _coeff_plains(t):
     return {"general": general, "monomial": mono, "negative monomial": neg}
 
 
-def _run(env, side, level, op):
-    ev = env["jev" if side == "jax" else "pev"]
-    keys = env["jkeys" if side == "jax" else "pkeys"]
-    ctx = env["jctx" if side == "jax" else "pctx"]
-    gk, rk = keys["gk"], keys["rk"]
-    a, b = env["levels"][level][side]
-    PT = JaxPlaintext if side == "jax" else P.Plaintext
+def _run(env, level, op):
+    ev, ctx = env["ev"], env["ctx"]
+    gk, rk = env["keys"]["gk"], env["keys"]["rk"]
+    a, b = env["levels"][level]
+    PT = env["Plaintext"]
     coeff = {name: PT.from_coeffs(v) for name, v in _coeff_plains(env["t"]).items()}
     if op == "negate":
         return ev.negate(a)
@@ -248,42 +251,46 @@ BOTH = ["relinearize", "rotate_rows(1)", "rotate_columns"]
 CASES = ([("first", op) for op in CHEAP + FIRST_ONLY + BOTH] + [("switched", op) for op in CHEAP + BOTH])
 
 
-@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
-def test_method_equals_jax(env, level, op):
+def _method_case(env, level, op):
+    a, b = env["levels"][level]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jout = _run(env, "jax", level, op)
-    pout = _run(env, "port", level, op)
-    _same(jout, pout)
+        out = _run(env, level, op)
+    return {"a": a, "b": b, "relin keys": env["keys"]["rk"], "galois keys": env["keys"]["gk"]}, {"out": out}
+
+
+@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
+def test_method_equals_jax(env, level, op, request):
+    ANSWERS.check(request.node.name, *_method_case(env, level, op))
 
 
 def test_decoded_results_are_the_slot_arithmetic(env):
     """The port's own results decode to the slot-wise arithmetic mod t, with
     rows rotated and columns swapped."""
-    pev, t = env["pev"], np.uint64(env["t"])
-    dec = P.Decryptor(env["pctx"], env["pkeys"]["sk"])
-    a, b = env["levels"]["first"]["port"]
+    pev, t = env["ev"], np.uint64(env["t"])
+    dec = P.Decryptor(env["ctx"], env["keys"]["sk"])
+    a, b = env["levels"]["first"]
     va, vb = env["va"], env["vb"]
-    rk, gk = env["pkeys"]["rk"], env["pkeys"]["gk"]
+    rk, gk = env["keys"]["rk"], env["keys"]["gk"]
     prod = (va.astype(object) * vb.astype(object) % int(t)).astype(np.uint64)
     out = pev.relinearize(pev.multiply(a, b), rk)
     rows = lambda v, s: np.concatenate([np.roll(v[: N // 2], -s), np.roll(v[N // 2:], -s)])
     cols = lambda v: np.concatenate([v[N // 2:], v[: N // 2]])
     chain = pev.mod_switch_to_next(pev.rotate_columns(pev.rotate_rows(out, 1, gk), gk))
     assert dec.invariant_noise_budget(chain) > 0
-    np.testing.assert_array_equal(env["pbe"].decode(dec.decrypt(out)), prod)
-    np.testing.assert_array_equal(env["pbe"].decode(dec.decrypt(chain)), cols(rows(prod, 1)))
-    np.testing.assert_array_equal(env["pbe"].decode(dec.decrypt(pev.add_plain(a, env["pbe"].encode(vb)))),
+    np.testing.assert_array_equal(env["be"].decode(dec.decrypt(out)), prod)
+    np.testing.assert_array_equal(env["be"].decode(dec.decrypt(chain)), cols(rows(prod, 1)))
+    np.testing.assert_array_equal(env["be"].decode(dec.decrypt(pev.add_plain(a, env["be"].encode(vb)))),
                                   (va + vb) % t)
 
 
 # -- (c) the batch evaluator ----------------------------------------------------------
 
 def test_batch_evaluator_equals_the_evaluator(env):
-    pev, pctx = env["pev"], env["pctx"]
+    pev, pctx = env["ev"], env["ctx"]
     bev = BatchEvaluator(pctx)
-    rk, gk = env["pkeys"]["rk"], env["pkeys"]["gk"]
-    a, b = env["levels"]["first"]["port"]
+    rk, gk = env["keys"]["rk"], env["keys"]["gk"]
+    a, b = env["levels"]["first"]
     b1, b2 = CiphertextBatch.from_ciphertexts([a, b, a]), CiphertextBatch.from_ciphertexts([b, a, a])
     plain = P.Plaintext.from_coeffs(_coeff_plains(env["t"])["general"])
     cases = {
@@ -314,15 +321,13 @@ def test_batch_evaluator_equals_the_evaluator(env):
 
 # -- (d) rejections --------------------------------------------------------------------
 
-def _rejections(env, side):
-    ev = env["jev" if side == "jax" else "pev"]
-    keys = env["jkeys" if side == "jax" else "pkeys"]
-    ctx = env["jctx" if side == "jax" else "pctx"]
-    Enc, Dec, Be = ((JaxEncryptor, JaxDecryptor, JaxBatchEncoder) if side == "jax"
-                    else (P.Encryptor, P.Decryptor, BatchEncoder))
-    a, b = env["levels"]["first"][side]
+def _rejections(env):
+    ev, keys, ctx, side = env["ev"], env["keys"], env["ctx"], env["side"]
+    Enc, Dec = env["Encryptor"], env["Decryptor"]
+    Be = JaxBatchEncoder if side == "jax" else BatchEncoder
+    a, b = env["levels"]["first"]
     ntt = ev.transform_to_ntt(a)
-    coeff = (JaxPlaintext if side == "jax" else P.Plaintext).from_coeffs([1, 2, 3])
+    coeff = env["Plaintext"].from_coeffs([1, 2, 3])
     ntt_plain = ev.transform_plain_to_ntt(coeff, a.parms_id)
     rk, gk = keys["rk"], keys["gk"]
     return {
@@ -350,19 +355,24 @@ def _rejections(env, side):
     }
 
 
-def test_rejections_equal_jax(env):
-    jcases, pcases = _rejections(env, "jax"), _rejections(env, "port")
-    assert jcases.keys() == pcases.keys()
-    for name in jcases:
-        for side, cases in (("jax", jcases), ("port", pcases)):
-            fn, message = cases[name]
-            with pytest.raises(ValueError, match=re.escape(message)):
-                fn()
+def _rejection_case(env):
+    """Each rejection's message, where the call raises ValueError with the
+    reference's message."""
+    outs = {}
+    for name, (fn, message) in _rejections(env).items():
+        with pytest.raises(ValueError, match=re.escape(message)):
+            fn()
+        outs[name] = message
+    return {"a": env["levels"]["first"][0]}, outs
+
+
+def test_rejections_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_rejection_case(env))
 
 
 def test_batch_rejections(env):
-    bev = BatchEvaluator(env["pctx"])
-    a, b = env["levels"]["first"]["port"]
+    bev = BatchEvaluator(env["ctx"])
+    a, b = env["levels"]["first"]
     batch = CiphertextBatch.from_ciphertexts([a, b])
     ntt = bev.transform_to_ntt(batch)
     plain = P.Plaintext.from_coeffs([1])
@@ -370,11 +380,11 @@ def test_batch_rejections(env):
                         (lambda: bev.add_plain(ntt, plain), "BFV operands cannot be in NTT form"),
                         (lambda: bev.mod_switch_to_next(ntt), "BFV encrypted cannot be in NTT form"),
                         (lambda: bev.relinearize(bev.transform_to_ntt(bev.multiply(batch, batch)),
-                                                 env["pkeys"]["rk"]), "BFV encrypted cannot be in NTT form"),
-                        (lambda: bev.rotate_rows(ntt, 1, env["pkeys"]["gk"]), "BFV encrypted cannot be in NTT form"),
+                                                 env["keys"]["rk"]), "BFV encrypted cannot be in NTT form"),
+                        (lambda: bev.rotate_rows(ntt, 1, env["keys"]["gk"]), "BFV encrypted cannot be in NTT form"),
                         (lambda: bev.rescale_to_next(batch), "unsupported scheme"),
-                        (lambda: bev.rotate_vector(batch, 1, env["pkeys"]["gk"]), "unsupported scheme"),
-                        (lambda: bev.multiply_many([], env["pkeys"]["rk"]), "encrypteds cannot be empty")):
+                        (lambda: bev.rotate_vector(batch, 1, env["keys"]["gk"]), "unsupported scheme"),
+                        (lambda: bev.multiply_many([], env["keys"]["rk"]), "encrypteds cannot be empty")):
         with pytest.raises(ValueError, match=re.escape(message)):
             fn()
 
@@ -417,3 +427,19 @@ def test_jax_pipeline_gives_bfv_digest():
 @pytest.mark.slow
 def test_jax_pipeline_gives_bfv_medium_digest():
     assert _jax_bfv_digest(golden.BFV_MEDIUM_N) == golden.BFV_MEDIUM_DIGEST
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    env = _env(side)
+    yield ("test_keys_equal_jax", *_keys_case(env))
+    yield ("test_encryptions_equal_jax", *_encryptions_case(env))
+    yield ("test_decrypt_decode_and_noise_budget_equal_jax", *_decrypt_case(env))
+    for level, op in CASES:
+        yield (f"test_method_equals_jax[{level}-{op}]", *_method_case(env, level, op))
+    yield ("test_rejections_equal_jax", *_rejection_case(env))
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))

@@ -29,7 +29,10 @@
     ``golden.BGV_MEDIUM_DIGEST`` (N=32768), and the port's side of the
     latter, are marked ``slow``.
 
-Every comparison is exact: BGV is integer arithmetic.
+The JAX package's answers to (d), (e) and the rejections of (f) are frozen
+in ``tests/data/jax_answers/`` (``tests/jax_answers.py``); the test marked
+``slow`` recomputes them.  Every comparison is exact: BGV is integer
+arithmetic.
 """
 
 import functools
@@ -69,6 +72,8 @@ from seal_tpu_torch.ntt_tables import build_limb_tables
 from seal_tpu_torch.ops import rns as R
 from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
 from seal_tpu_torch.rns_host import HostRNSBase, HostRNSTool
+
+import jax_answers as JA
 
 # -- (a) host constants ------------------------------------------------------------
 
@@ -223,18 +228,23 @@ SEED = (8, 7, 6, 5, 4, 3, 2, 1)
 STEPS = [1, -1, 4, 0]          # 0: the column swap; 3 has no key and rotates by NAF [-1, 4]
 
 
-def _sides():
-    jp = JaxParameters(JaxScheme.BGV)
-    jp.set_poly_modulus_degree(N)
-    jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-    jp.set_plain_modulus(JaxPlainModulus.batching(N, 20))
-    jp.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
-    pp = P.EncryptionParameters(P.SchemeType.BGV)
-    pp.set_poly_modulus_degree(N)
-    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    pp.set_plain_modulus(PlainModulus.batching(N, 20))
-    pp.set_random_generator(C.factory_from_settings(*C.factory_to_settings(jp.random_generator)))
-    return JaxContext(jp, True, JaxSecurityLevel.NONE), P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+ANSWERS = JA.Answers(__file__)
+
+
+def _context(side):
+    if side == "jax":
+        parms = JaxParameters(JaxScheme.BGV)
+        parms.set_poly_modulus_degree(N)
+        parms.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
+        parms.set_plain_modulus(JaxPlainModulus.batching(N, 20))
+        parms.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
+        return JaxContext(parms, True, JaxSecurityLevel.NONE)
+    parms = P.EncryptionParameters(P.SchemeType.BGV)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
+    parms.set_plain_modulus(PlainModulus.batching(N, 20))
+    parms.set_random_generator(P.UniformRandomGeneratorFactory(P.PRNGType.BLAKE2XB, SEED))
+    return P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
 
 
 def _client(side, ctx, va, vb):
@@ -254,82 +264,76 @@ def _client(side, ctx, va, vb):
     return keys, be, a, b, seeded
 
 
-@pytest.fixture(scope="module")
-def env():
-    jctx, pctx = _sides()
-    t = pctx.first_context_data().parms.plain_modulus.value
+def _env(side):
+    """One package's context, keys, encoder, evaluator, and per level the
+    two ciphertexts, from its own client; host sampling."""
+    ctx = _context(side)
+    t = ctx.first_context_data().parms.plain_modulus.value
     rng = np.random.default_rng(5)
     va = rng.integers(0, t, size=N, dtype=np.uint64)
     vb = rng.integers(0, t, size=N, dtype=np.uint64)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jkeys, jbe, ja, jb, jseeded = _client("jax", jctx, va, vb)
-    pkeys, pbe, pa, pb, pseeded = _client("port", pctx, va, vb)
-    jev, pev = JaxEvaluator(jctx), P.Evaluator(pctx)
-    levels = {"first": {"jax": (ja, jb), "port": (pa, pb)},
-              "switched": {"jax": (jev.mod_switch_to_next(ja), jev.mod_switch_to_next(jb)),
-                           "port": (pev.mod_switch_to_next(pa), pev.mod_switch_to_next(pb))}}
-    return {"jctx": jctx, "pctx": pctx, "jev": jev, "pev": pev, "jkeys": jkeys, "pkeys": pkeys, "jbe": jbe,
-            "pbe": pbe, "va": va, "vb": vb, "t": t, "seeded": (jseeded, pseeded), "levels": levels}
+        keys, be, a, b, seeded = _client(side, ctx, va, vb)
+    is_jax = side == "jax"
+    ev = (JaxEvaluator if is_jax else P.Evaluator)(ctx)
+    levels = {"first": (a, b), "switched": (ev.mod_switch_to_next(a), ev.mod_switch_to_next(b))}
+    return {"side": side, "ctx": ctx, "ev": ev, "keys": keys, "be": be, "va": va, "vb": vb, "t": t,
+            "seeded": seeded, "levels": levels, "Plaintext": JaxPlaintext if is_jax else P.Plaintext,
+            "Encryptor": JaxEncryptor if is_jax else P.Encryptor,
+            "Decryptor": JaxDecryptor if is_jax else P.Decryptor}
 
 
-def _same(jout, pout):
-    if isinstance(jout, JaxPlaintext):
-        if jout.is_ntt_form:
-            assert pout.parms_id == jout.parms_id
-            np.testing.assert_array_equal(C.u64_to_numpy(pout.rns_data), JU.to_np_u64(jout.rns_data))
-        else:
-            np.testing.assert_array_equal(pout.coeff_data, jout.coeff_data)
-        return
-    np.testing.assert_array_equal(C.u64_to_numpy(pout.data), JU.to_np_u64(jout.data))
-    assert (pout.parms_id, pout.scale, pout.is_ntt_form, pout.correction_factor) == (
-        jout.parms_id, jout.scale, jout.is_ntt_form, jout.correction_factor)
+@pytest.fixture(scope="module")
+def env():
+    """The port's side, built by its own client."""
+    return _env("port")
 
 
-def _same_keys(jk, pk):
-    assert pk.parms_id == jk.parms_id and len(pk.keys) == len(jk.keys)
-    for j, p in zip(jk.keys, pk.keys):
-        assert (j is None) == (p is None)
-        if j is not None:
-            for c in ("c0", "c1"):
-                np.testing.assert_array_equal(C.u64_to_numpy(p[c]), JU.to_np_u64(j[c]))
+def _keys_case(env):
+    keys = env["keys"]
+    return {"seed": np.array(SEED, dtype=np.uint64)}, {
+        "secret key": keys["sk"], "public key": keys["pk"], "relin keys": keys["rk"], "galois keys": keys["gk"]}
 
 
-def test_keys_equal_jax(env):
-    jk, pk = env["jkeys"], env["pkeys"]
-    np.testing.assert_array_equal(C.u64_to_numpy(pk["sk"].data), JU.to_np_u64(jk["sk"].data))
-    _same(jk["pk"].data, pk["pk"].data)
-    _same_keys(jk["rk"], pk["rk"])
-    _same_keys(jk["gk"], pk["gk"])
-    assert pk["gk"].has_key(2 * N - 1) and pk["gk"].has_key(3)
+def test_keys_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_keys_case(env))
+    assert env["keys"]["gk"].has_key(2 * N - 1) and env["keys"]["gk"].has_key(3)
 
 
-def test_encryptions_equal_jax(env):
-    for level in ("first", "switched"):
-        for j, p in zip(env["levels"][level]["jax"], env["levels"][level]["port"]):
-            _same(j, p)
-            assert p.is_ntt_form
-    switched = env["levels"]["switched"]["port"][0]
-    cd = env["pctx"].first_context_data()
+def _encryptions_case(env):
+    outs = {f"{level} {name}": ct for level in ("first", "switched")
+            for name, ct in zip("ab", env["levels"][level])}
+    outs["seeded"] = env["seeded"]
+    outs["seed"] = np.array(env["seeded"].seed_info.seed, dtype=np.uint64)
+    return {"a": env["va"], "b": env["vb"]}, outs
+
+
+def test_encryptions_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_encryptions_case(env))
+    assert all(ct.is_ntt_form for level in env["levels"].values() for ct in level)
+    switched = env["levels"]["switched"][0]
+    cd = env["ctx"].first_context_data()
     assert switched.correction_factor == cd.rns_tool.inv_q_last_mod_t != 1
-    jseeded, pseeded = env["seeded"]
-    _same(jseeded, pseeded)
-    assert pseeded.seed_info.seed == jseeded.seed_info.seed
 
 
-def test_decrypt_decode_and_noise_budget_equal_jax(env):
-    jdec = JaxDecryptor(env["jctx"], env["jkeys"]["sk"])
-    pdec = P.Decryptor(env["pctx"], env["pkeys"]["sk"])
+def _decrypt_case(env):
+    dec = env["Decryptor"](env["ctx"], env["keys"]["sk"])
+    outs = {}
     for level in ("first", "switched"):
-        for j, p, want in zip(env["levels"][level]["jax"], env["levels"][level]["port"], (env["va"], env["vb"])):
-            jpt, ppt = jdec.decrypt(j), pdec.decrypt(p)
-            _same(jpt, ppt)
-            np.testing.assert_array_equal(env["pbe"].decode(ppt), want)
+        for name, ct, want in zip("ab", env["levels"][level], (env["va"], env["vb"])):
+            plain = dec.decrypt(ct)
+            np.testing.assert_array_equal(env["be"].decode(plain), want)
+            outs[f"{level} {name}"] = plain
         # the JAX package's inverse NTT of the budget runs eagerly: one
         # ciphertext a level
-        j, p = env["levels"][level]["jax"][1], env["levels"][level]["port"][1]
-        budget = pdec.invariant_noise_budget(p)
-        assert budget == jdec.invariant_noise_budget(j) and budget > 0
+        outs[f"{level} noise budget"] = budget = dec.invariant_noise_budget(env["levels"][level][1])
+        assert budget > 0
+    return {f"{level} {name}": ct for level in ("first", "switched") for name, ct in zip("ab", env["levels"][level])}, outs
+
+
+def test_decrypt_decode_and_noise_budget_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_decrypt_case(env))
 
 
 # -- (e) the evaluator surface ------------------------------------------------------------
@@ -345,13 +349,11 @@ def _coeff_plains(t):
     return {"general": general, "monomial": mono, "negative monomial": neg}
 
 
-def _run(env, side, level, op):
-    ev = env["jev" if side == "jax" else "pev"]
-    keys = env["jkeys" if side == "jax" else "pkeys"]
-    ctx = env["jctx" if side == "jax" else "pctx"]
-    gk, rk = keys["gk"], keys["rk"]
-    a, b = env["levels"][level][side]
-    PT = JaxPlaintext if side == "jax" else P.Plaintext
+def _run(env, level, op):
+    ev, ctx = env["ev"], env["ctx"]
+    gk, rk = env["keys"]["gk"], env["keys"]["rk"]
+    a, b = env["levels"][level]
+    PT = env["Plaintext"]
     coeff = {name: PT.from_coeffs(v) for name, v in _coeff_plains(env["t"]).items()}
     if op == "negate":
         return ev.negate(a)
@@ -424,13 +426,17 @@ CASES = ([("first", op) for op in CHEAP + FIRST_ONLY + BOTH]
          + [("switched", op) for op in CHEAP[:-1] + BOTH + SWITCHED_ONLY])
 
 
-@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
-def test_method_equals_jax(env, level, op):
+def _method_case(env, level, op):
+    a, b = env["levels"][level]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jout = _run(env, "jax", level, op)
-    pout = _run(env, "port", level, op)
-    _same(jout, pout)
+        out = _run(env, level, op)
+    return {"a": a, "b": b, "relin keys": env["keys"]["rk"], "galois keys": env["keys"]["gk"]}, {"out": out}
+
+
+@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
+def test_method_equals_jax(env, level, op, request):
+    ANSWERS.check(request.node.name, *_method_case(env, level, op))
 
 
 def test_decoded_chain_is_the_slot_arithmetic(env):
@@ -438,33 +444,33 @@ def test_decoded_chain_is_the_slot_arithmetic(env):
     (f^2), w = z + (a + b switched down) balanced, then rotate_rows(1) and
     rotate_columns: decoded, numpy's (a b + a + b) mod t with the rows
     rotated and the columns swapped."""
-    pev, t = env["pev"], env["t"]
-    dec = P.Decryptor(env["pctx"], env["pkeys"]["sk"])
-    rk, gk = env["pkeys"]["rk"], env["pkeys"]["gk"]
-    x, y = env["levels"]["switched"]["port"]
+    pev, t = env["ev"], env["t"]
+    dec = P.Decryptor(env["ctx"], env["keys"]["sk"])
+    rk, gk = env["keys"]["rk"], env["keys"]["gk"]
+    x, y = env["levels"]["switched"]
     z = pev.relinearize(pev.multiply(x, y), rk)
-    c = pev.mod_switch_to_next(pev.add(*env["levels"]["first"]["port"]))
+    c = pev.mod_switch_to_next(pev.add(*env["levels"]["first"]))
     assert z.correction_factor != c.correction_factor
     w = pev.rotate_columns(pev.rotate_rows(pev.add(z, c), 1, gk), gk)
     va, vb = (v.astype(object) for v in (env["va"], env["vb"]))
     want = ((va * vb + va + vb) % t).astype(np.uint64)
     rows = np.concatenate([np.roll(want[: N // 2], -1), np.roll(want[N // 2:], -1)])
     assert dec.invariant_noise_budget(w) > 0
-    np.testing.assert_array_equal(env["pbe"].decode(dec.decrypt(w)), np.concatenate([rows[N // 2:], rows[: N // 2]]))
-    plain = env["pbe"].encode(env["vb"])
-    np.testing.assert_array_equal(env["pbe"].decode(dec.decrypt(pev.add_plain(x, plain))),
+    np.testing.assert_array_equal(env["be"].decode(dec.decrypt(w)), np.concatenate([rows[N // 2:], rows[: N // 2]]))
+    plain = env["be"].encode(env["vb"])
+    np.testing.assert_array_equal(env["be"].decode(dec.decrypt(pev.add_plain(x, plain))),
                                   ((va + vb) % t).astype(np.uint64))
-    np.testing.assert_array_equal(env["pbe"].decode(dec.decrypt(pev.multiply_plain(x, plain))),
+    np.testing.assert_array_equal(env["be"].decode(dec.decrypt(pev.multiply_plain(x, plain))),
                                   (va * vb % t).astype(np.uint64))
 
 
 # -- (f) the batch evaluator and the rejections -------------------------------------------------
 
 def test_batch_evaluator_equals_the_evaluator(env):
-    pev, pctx = env["pev"], env["pctx"]
+    pev, pctx = env["ev"], env["ctx"]
     bev = BatchEvaluator(pctx)
-    rk, gk = env["pkeys"]["rk"], env["pkeys"]["gk"]
-    a, b = env["levels"]["first"]["port"]
+    rk, gk = env["keys"]["rk"], env["keys"]["gk"]
+    a, b = env["levels"]["first"]
     b1, b2 = CiphertextBatch.from_ciphertexts([a, b, a]), CiphertextBatch.from_ciphertexts([b, a, b])
     s1 = bev.mod_switch_to_next(b1)
     coeff = P.Plaintext.from_coeffs(_coeff_plains(env["t"])["general"])
@@ -502,14 +508,12 @@ def test_batch_evaluator_equals_the_evaluator(env):
                 want.parms_id, want.is_ntt_form, want.scale, want.correction_factor), name
 
 
-def _rejections(env, side):
-    ev = env["jev" if side == "jax" else "pev"]
-    keys = env["jkeys" if side == "jax" else "pkeys"]
-    ctx = env["jctx" if side == "jax" else "pctx"]
-    Enc, Dec = (JaxEncryptor, JaxDecryptor) if side == "jax" else (P.Encryptor, P.Decryptor)
-    a, b = env["levels"]["first"][side]
+def _rejections(env):
+    ev, keys, ctx = env["ev"], env["keys"], env["ctx"]
+    Enc, Dec = env["Encryptor"], env["Decryptor"]
+    a, b = env["levels"]["first"]
     coeff_ct = ev.transform_from_ntt(a)
-    coeff = (JaxPlaintext if side == "jax" else P.Plaintext).from_coeffs([1, 2, 3])
+    coeff = env["Plaintext"].from_coeffs([1, 2, 3])
     ntt_plain = ev.transform_plain_to_ntt(coeff, a.parms_id)
     rk, gk = keys["rk"], keys["gk"]
     return {
@@ -539,23 +543,28 @@ def _rejections(env, side):
     }
 
 
-def test_rejections_equal_jax(env):
-    jcases, pcases = _rejections(env, "jax"), _rejections(env, "port")
-    assert jcases.keys() == pcases.keys()
-    for name in jcases:
-        for side, cases in (("jax", jcases), ("port", pcases)):
-            fn, message = cases[name]
-            with pytest.raises(ValueError, match=re.escape(message)):
-                fn()
+def _rejection_case(env):
+    """Each rejection's message, where the call raises ValueError with the
+    reference's message."""
+    outs = {}
+    for name, (fn, message) in _rejections(env).items():
+        with pytest.raises(ValueError, match=re.escape(message)):
+            fn()
+        outs[name] = message
+    return {"a": env["levels"]["first"][0]}, outs
+
+
+def test_rejections_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_rejection_case(env))
 
 
 def test_batch_rejections(env):
-    bev = BatchEvaluator(env["pctx"])
-    a, b = env["levels"]["first"]["port"]
+    bev = BatchEvaluator(env["ctx"])
+    a, b = env["levels"]["first"]
     batch = CiphertextBatch.from_ciphertexts([a, b])
     coeff = bev.transform_from_ntt(batch)
     plain = P.Plaintext.from_coeffs([1])
-    gk, rk = env["pkeys"]["gk"], env["pkeys"]["rk"]
+    gk, rk = env["keys"]["gk"], env["keys"]["rk"]
     for fn, message in ((lambda: bev.multiply(coeff, coeff), "BGV operands must be in NTT form"),
                         (lambda: bev.add_plain(coeff, plain), "BGV encrypted must be in NTT form"),
                         (lambda: bev.mod_switch_to_next(coeff), "BGV encrypted must be in NTT form"),
@@ -635,3 +644,19 @@ def test_port_request_gives_bgv_medium_digest():
     assert data.shape == (2, 14, golden.BGV_MEDIUM_N)
     assert out.correction_factor == golden.BGV_MEDIUM_CORRECTION_FACTOR
     assert golden.digest(data) == golden.BGV_MEDIUM_DIGEST
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    env = _env(side)
+    yield ("test_keys_equal_jax", *_keys_case(env))
+    yield ("test_encryptions_equal_jax", *_encryptions_case(env))
+    yield ("test_decrypt_decode_and_noise_budget_equal_jax", *_decrypt_case(env))
+    for level, op in CASES:
+        yield (f"test_method_equals_jax[{level}-{op}]", *_method_case(env, level, op))
+    yield ("test_rejections_equal_jax", *_rejection_case(env))
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))

@@ -17,9 +17,14 @@ seeded BLAKE2XB factory of ``__graft_entry__._build``:
 
 The JAX side samples on the host (``SEAL_TPU_DEVICE_SAMPLING=0``), the path
 the port implements; the JAX package's own tests hold its device sampling
-to the same bytes.  Every comparison is exact: integers are equal, and the
-decoded float64 values are equal bit for bit, no tolerance.
+to the same bytes.  The JAX package's answers to (b) to (e) and (g) are
+frozen in ``tests/data/jax_answers/`` (``tests/jax_answers.py``); the test
+marked ``slow`` recomputes them.  Every comparison is exact: integers are
+equal, and the decoded float64 values are equal bit for bit, no tolerance.
 """
+
+import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -33,7 +38,6 @@ from seal_tpu.evaluator import Evaluator as JaxEvaluator
 from seal_tpu.keygen import KeyGenerator as JaxKeyGenerator
 from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
 from seal_tpu.native import blake2xb as jax_blake2xb
-from seal_tpu.ops import u64 as JU
 from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as JaxScheme
 from seal_tpu.random import PRNGType as JaxPRNGType, UniformRandomGeneratorFactory as JaxFactory
 from seal_tpu.random import sampler as JS
@@ -43,39 +47,56 @@ from seal_tpu_torch import convert as C
 from seal_tpu_torch.random import prng as PP
 from seal_tpu_torch.random import sampler as PS
 
+import jax_answers as JA
+
 N = 1024
 BITS = [60, 40, 40, 40, 60]
 SEED = (1, 2, 3, 4, 5, 6, 7, 8)      # __graft_entry__._build's factory seed
 
 
-def _eq(jax_value, port_tensor):
-    np.testing.assert_array_equal(JU.to_np_u64(jax_value), C.u64_to_numpy(port_tensor))
+ANSWERS = JA.Answers(__file__)
+
+
+def _package(side):
+    if side == "jax":
+        return SimpleNamespace(Parameters=JaxParameters, Scheme=JaxScheme, CoeffModulus=JaxCoeffModulus,
+                               Context=lambda parms: JaxContext(parms, True, JaxSecurityLevel.NONE),
+                               Factory=JaxFactory, PRNGType=JaxPRNGType, KeyGenerator=JaxKeyGenerator,
+                               Encoder=JaxEncoder, Encryptor=JaxEncryptor, Decryptor=JaxDecryptor,
+                               Evaluator=JaxEvaluator)
+    return SimpleNamespace(Parameters=P.EncryptionParameters, Scheme=P.SchemeType, CoeffModulus=P.CoeffModulus,
+                           Context=lambda parms: P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu"),
+                           Factory=P.UniformRandomGeneratorFactory, PRNGType=P.PRNGType, KeyGenerator=P.KeyGenerator,
+                           Encoder=P.CKKSEncoder, Encryptor=P.Encryptor, Decryptor=P.Decryptor, Evaluator=P.Evaluator)
+
+
+@contextlib.contextmanager
+def _host_paths():
+    """Host sampling and the host ladder, the paths the port implements."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("SEAL_TPU_DEVICE_SAMPLING", "SEAL_TPU_DEVICE_FFT", "SEAL_TPU_DEVICE_COMPOSE"):
+            mp.setenv(var, "0")
+        yield
+
+
+def _client(side):
+    """One package's context, keys and classes from the seeded factory."""
+    k = _package(side)
+    with _host_paths():
+        parms = k.Parameters(k.Scheme.CKKS)
+        parms.set_poly_modulus_degree(N)
+        parms.set_coeff_modulus(k.CoeffModulus.create(N, BITS))
+        parms.set_random_generator(k.Factory(k.PRNGType.BLAKE2XB, SEED))
+        ctx = k.Context(parms)
+        kg = k.KeyGenerator(ctx)
+        return {"side": side, "k": k, "ctx": ctx, "kg": kg, "sk": kg.secret_key, "pk": kg.create_public_key(),
+                "rk": kg.create_relin_keys(), "plain": k.Encoder(ctx).encode(ENCODED, 2.0 ** 40)}
 
 
 @pytest.fixture(scope="module")
 def pair():
-    """Both packages' contexts, keys and PRNG factories, built once."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jp = JaxParameters(JaxScheme.CKKS)
-        jp.set_poly_modulus_degree(N)
-        jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-        jp.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
-        jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
-        jkg = JaxKeyGenerator(jctx)
-        j = {"ctx": jctx, "kg": jkg, "sk": jkg.secret_key, "pk": jkg.create_public_key(),
-             "rk": jkg.create_relin_keys()}
-
-    pp = P.EncryptionParameters(P.SchemeType.CKKS)
-    pp.set_poly_modulus_degree(N)
-    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    pp.set_random_generator(C.factory_from_settings(*C.factory_to_settings(jp.random_generator)))
-    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
-    assert pctx.key_parms_id == jctx.key_parms_id
-    pkg = P.KeyGenerator(pctx)
-    p = {"ctx": pctx, "kg": pkg, "sk": pkg.secret_key, "pk": pkg.create_public_key(),
-         "rk": pkg.create_relin_keys()}
-    return j, p
+    """The port's side, built by its own client."""
+    return _client("port")
 
 
 # -- (a) PRNG streams and samplers ------------------------------------------
@@ -116,95 +137,75 @@ def test_uniform_sampler_rejection_redraws_like_jax():
 
 # -- (b) keys ----------------------------------------------------------------
 
-def test_secret_key_matches_jax(pair):
-    j, p = pair
-    _eq(j["sk"].data, p["sk"].data)
-    assert p["sk"].parms_id == j["sk"].parms_id
+SEEDS = {"seed": np.array(SEED, dtype=np.uint64)}
 
 
-def test_public_key_matches_jax(pair):
-    j, p = pair
-    _eq(j["pk"].data.data, p["pk"].data.data)
-    assert p["pk"].parms_id == j["pk"].parms_id
+def test_secret_key_matches_jax(pair, request):
+    ANSWERS.check(request.node.name, SEEDS, {"secret_key": pair["sk"]})
 
 
-def test_relin_keys_match_jax(pair):
-    j, p = pair
-    for part in ("c0", "c1"):
-        _eq(j["rk"].key(2)[part], p["rk"].key(2)[part])
-    assert p["rk"].parms_id == j["rk"].parms_id
+def test_public_key_matches_jax(pair, request):
+    ANSWERS.check(request.node.name, SEEDS, {"public_key": pair["pk"]})
 
 
-def test_relin_key_for_a_cube_matches_jax(pair):
+def test_relin_keys_match_jax(pair, request):
+    ANSWERS.check(request.node.name, SEEDS, {"relin_keys": pair["rk"]})
+
+
+def _cube_case(c):
     """count=2 adds the key for s^3 (the secret-key power cache)."""
-    j, p = pair
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jrk = j["kg"].create_relin_keys(count=2)
-    prk = p["kg"].create_relin_keys(count=2)
-    _eq(jrk.key(3)["c0"], prk.key(3)["c0"])
+    with _host_paths():
+        return SEEDS, {"relin_keys(count=2)": c["kg"].create_relin_keys(count=2)}
+
+
+def test_relin_key_for_a_cube_matches_jax(pair, request):
+    ANSWERS.check(request.node.name, *_cube_case(pair))
 
 
 # -- (c, d) encryption and decryption ---------------------------------------
 
-@pytest.fixture(scope="module")
-def encoded(pair):
-    j, p = pair
-    vals = np.linspace(-1.0, 1.0, N // 2) + 0.5j * np.linspace(0.3, -0.7, N // 2)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAL_TPU_DEVICE_FFT", "0")
-        mp.setenv("SEAL_TPU_DEVICE_COMPOSE", "0")
-        jpt = JaxEncoder(j["ctx"]).encode(vals, 2.0 ** 40)
-    ppt = P.CKKSEncoder(p["ctx"]).encode(vals, 2.0 ** 40)
-    return vals, jpt, ppt
+ENCODED = np.linspace(-1.0, 1.0, N // 2) + 0.5j * np.linspace(0.3, -0.7, N // 2)
+
+
+def _symmetric_case(c, save_seed):
+    with _host_paths():
+        ct = c["k"].Encryptor(c["ctx"], secret_key=c["sk"]).encrypt_symmetric(c["plain"], save_seed=save_seed)
+    outs = {"ciphertext": ct}
+    if save_seed:
+        outs["seed"] = np.array(ct.seed_info.seed, dtype=np.uint64)
+        outs["prng_type"] = int(ct.seed_info.prng_type)
+    return {"plain": c["plain"], "secret_key": c["sk"]}, outs
 
 
 @pytest.mark.parametrize("save_seed", [False, True])
-def test_encrypt_symmetric_matches_jax(pair, encoded, save_seed):
-    j, p = pair
-    _, jpt, ppt = encoded
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jct = JaxEncryptor(j["ctx"], secret_key=j["sk"]).encrypt_symmetric(jpt, save_seed=save_seed)
-    pct = P.Encryptor(p["ctx"], secret_key=p["sk"]).encrypt_symmetric(ppt, save_seed=save_seed)
-    _eq(jct.data, pct.data)
-    assert (pct.parms_id, pct.scale, pct.is_ntt_form) == (jct.parms_id, jct.scale, jct.is_ntt_form)
-    if save_seed:
-        assert pct.seed_info.seed == jct.seed_info.seed
-        assert int(pct.seed_info.prng_type) == int(jct.seed_info.prng_type)
+def test_encrypt_symmetric_matches_jax(pair, save_seed, request):
+    ANSWERS.check(request.node.name, *_symmetric_case(pair, save_seed))
 
 
-def test_encrypt_with_public_key_matches_jax(pair, encoded):
-    j, p = pair
-    _, jpt, ppt = encoded
-    jct = JaxEncryptor(j["ctx"], public_key=j["pk"]).encrypt(jpt)
-    pct = P.Encryptor(p["ctx"], public_key=p["pk"]).encrypt(ppt)
-    _eq(jct.data, pct.data)
-    assert (pct.parms_id, pct.scale) == (jct.parms_id, jct.scale)
+def _public_case(c):
+    with _host_paths():
+        ct = c["k"].Encryptor(c["ctx"], public_key=c["pk"]).encrypt(c["plain"])
+    return {"plain": c["plain"], "public_key": c["pk"]}, {"ciphertext": ct}
 
 
-def test_decrypt_matches_jax(pair, encoded):
-    j, p = pair
-    _, jpt, ppt = encoded
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jct = JaxEncryptor(j["ctx"], secret_key=j["sk"]).encrypt_symmetric(jpt)
-    pct = P.Encryptor(p["ctx"], secret_key=p["sk"]).encrypt_symmetric(ppt)
-    jdp = JaxDecryptor(j["ctx"], j["sk"]).decrypt(jct)
-    pdp = P.Decryptor(p["ctx"], p["sk"]).decrypt(pct)
-    _eq(jdp.rns_data, pdp.rns_data)
-    assert (pdp.parms_id, pdp.scale) == (jdp.parms_id, jdp.scale)
+def test_encrypt_with_public_key_matches_jax(pair, request):
+    ANSWERS.check(request.node.name, *_public_case(pair))
+
+
+def _decrypt_case(c):
+    with _host_paths():
+        ct = c["k"].Encryptor(c["ctx"], secret_key=c["sk"]).encrypt_symmetric(c["plain"])
+    return {"ciphertext": ct}, {"plain": c["k"].Decryptor(c["ctx"], c["sk"]).decrypt(ct)}
+
+
+def test_decrypt_matches_jax(pair, request):
+    ANSWERS.check(request.node.name, *_decrypt_case(pair))
 
 
 # -- (e) encoder --------------------------------------------------------------
 
-def _host_ladder(monkeypatch):
-    monkeypatch.setenv("SEAL_TPU_DEVICE_FFT", "0")
-    monkeypatch.setenv("SEAL_TPU_DEVICE_COMPOSE", "0")
-
-
 _VALUES = {
-    "complex vector": (np.linspace(-1.0, 1.0, N // 2) + 0.5j * np.linspace(0.3, -0.7, N // 2), 2.0 ** 40),
+    "complex vector": (ENCODED, 2.0 ** 40),
     "short real vector": (np.array([0.5, -1.25, 3.0, 1e-3]), 2.0 ** 30),
     "real scalar": (-2.75, 2.0 ** 40),
     "complex scalar": (1.5 - 0.25j, 2.0 ** 40),
@@ -212,44 +213,45 @@ _VALUES = {
 }
 
 
-@pytest.mark.parametrize("case", list(_VALUES))
-def test_encode_matches_jax_host_ladder(pair, monkeypatch, case):
-    j, p = pair
-    _host_ladder(monkeypatch)
+def _encode_case(c, case):
     values, scale = _VALUES[case]
-    jpt = JaxEncoder(j["ctx"]).encode(values, scale)
-    ppt = P.CKKSEncoder(p["ctx"]).encode(values, scale)
-    _eq(jpt.rns_data, ppt.rns_data)
-    assert (ppt.parms_id, ppt.scale) == (jpt.parms_id, jpt.scale)
+    with _host_paths():
+        pt = c["k"].Encoder(c["ctx"]).encode(values, scale)
+    return {"values": np.asarray(values), "scale": scale}, {"plain": pt}
+
+
+@pytest.mark.parametrize("case", list(_VALUES))
+def test_encode_matches_jax_host_ladder(pair, case, request):
+    ANSWERS.check(request.node.name, *_encode_case(pair, case))
+
+
+def _decode_case(c, case):
+    """Decode a fresh encryption at the first level and a product at the
+    next level (fewer limbs); float64 equality, bit for bit."""
+    values, scale = _VALUES[case]
+    k, ctx = c["k"], c["ctx"]
+    with _host_paths():
+        enc, dec = k.Encoder(ctx), k.Decryptor(ctx, c["sk"])
+        ct = k.Encryptor(ctx, secret_key=c["sk"]).encrypt_symmetric(enc.encode(values, scale))
+        plain = dec.decrypt(ct)
+        outs = {"decoded": enc.decode(plain)}
+        # a plaintext one level down, same residues in both packages
+        plain.parms_id = ctx.first_context_data().next_context_data.parms_id
+        plain.rns_data = (plain.rns_data[:-1] if c["side"] == "port"
+                          else (plain.rns_data[0][:-1], plain.rns_data[1][:-1]))
+        outs["decoded one level down"] = enc.decode(plain)
+    return {"ciphertext": ct}, outs
 
 
 @pytest.mark.parametrize("case", ["complex vector", "wide tier"])
-def test_decode_matches_jax_host_ladder(pair, monkeypatch, case):
-    """Decode a fresh encryption at the first level and a product at the
-    next level (fewer limbs); float64 equality, bit for bit."""
-    j, p = pair
-    _host_ladder(monkeypatch)
-    monkeypatch.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-    values, scale = _VALUES[case]
-    je, pe = JaxEncoder(j["ctx"]), P.CKKSEncoder(p["ctx"])
-    jct = JaxEncryptor(j["ctx"], secret_key=j["sk"]).encrypt_symmetric(je.encode(values, scale))
-    pct = P.Encryptor(p["ctx"], secret_key=p["sk"]).encrypt_symmetric(pe.encode(values, scale))
-    jdec, pdec = JaxDecryptor(j["ctx"], j["sk"]), P.Decryptor(p["ctx"], p["sk"])
-    got, want = pe.decode(pdec.decrypt(pct)), je.decode(jdec.decrypt(jct))
-    np.testing.assert_array_equal(got, want)
-    pdp = pdec.decrypt(pct)
-    jdp = jdec.decrypt(jct)
-    # a plaintext one level down, same residues in both packages
-    nxt = p["ctx"].first_context_data().next_context_data.parms_id
-    pdp.rns_data, pdp.parms_id = pdp.rns_data[:-1], nxt
-    jdp.rns_data, jdp.parms_id = (jdp.rns_data[0][:-1], jdp.rns_data[1][:-1]), nxt
-    np.testing.assert_array_equal(pe.decode(pdp), je.decode(jdp))
+def test_decode_matches_jax_host_ladder(pair, case, request):
+    ANSWERS.check(request.node.name, *_decode_case(pair, case))
 
 
 # -- (f) convert and refusals -----------------------------------------------
 
 def test_convert_round_trips(pair):
-    _, p = pair
+    p = pair
     sk, pid = C.secret_key_to_numpy(p["sk"])
     back = C.secret_key_from_numpy(sk, pid, "cpu")
     assert torch.equal(back.data, p["sk"].data) and back.parms_id == pid
@@ -284,26 +286,44 @@ def test_unported_client_parts_raise(pair):
 
 # -- (g) the round trip --------------------------------------------------------
 
-def test_round_trip_equals_jax(pair, monkeypatch):
-    j, p = pair
-    _host_ladder(monkeypatch)
-    monkeypatch.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
+def _round_trip_case(c):
+    k, ctx = c["k"], c["ctx"]
     scale = 2.0 ** 40
     a = np.linspace(-1.0, 1.0, N // 2)
     b = np.linspace(0.5, -0.5, N // 2) + 0.25j
+    with _host_paths():
+        ev, enc = k.Evaluator(ctx), k.Encoder(ctx)
+        ct1 = k.Encryptor(ctx, secret_key=c["sk"]).encrypt_symmetric(enc.encode(a, scale))
+        ct2 = k.Encryptor(ctx, public_key=c["pk"]).encrypt(enc.encode(b, scale))
+        out = ev.rescale_to_next(ev.relinearize(ev.multiply(ct1, ct2), c["rk"]))
+        plain = k.Decryptor(ctx, c["sk"]).decrypt(out)
+        values = enc.decode(plain)
+    assert np.max(np.abs(values - a * b)) < 1e-6
+    return {"a": a, "b": b}, {"ciphertext": out, "plain": plain, "decoded": values}
 
-    def run(ctx, keys, encoder, encryptor, decryptor, evaluator):
-        ev, enc = evaluator(ctx), encoder(ctx)
-        ct1 = encryptor(ctx, secret_key=keys["sk"]).encrypt_symmetric(enc.encode(a, scale))
-        ct2 = encryptor(ctx, public_key=keys["pk"]).encrypt(enc.encode(b, scale))
-        out = ev.rescale_to_next(ev.relinearize(ev.multiply(ct1, ct2), keys["rk"]))
-        plain = decryptor(ctx, keys["sk"]).decrypt(out)
-        return out, plain, enc.decode(plain)
 
-    jout, jplain, jvals = run(j["ctx"], j, JaxEncoder, JaxEncryptor, JaxDecryptor, JaxEvaluator)
-    pout, pplain, pvals = run(p["ctx"], p, P.CKKSEncoder, P.Encryptor, P.Decryptor, P.Evaluator)
-    _eq(jout.data, pout.data)
-    assert (pout.parms_id, pout.scale) == (jout.parms_id, jout.scale)
-    _eq(jplain.rns_data, pplain.rns_data)
-    np.testing.assert_array_equal(pvals, jvals)
-    assert np.max(np.abs(pvals - a * b)) < 1e-6
+def test_round_trip_equals_jax(pair, request):
+    ANSWERS.check(request.node.name, *_round_trip_case(pair))
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    c = _client(side)
+    yield "test_secret_key_matches_jax", SEEDS, {"secret_key": c["sk"]}
+    yield "test_public_key_matches_jax", SEEDS, {"public_key": c["pk"]}
+    yield "test_relin_keys_match_jax", SEEDS, {"relin_keys": c["rk"]}
+    yield ("test_relin_key_for_a_cube_matches_jax", *_cube_case(c))
+    for save_seed in (False, True):
+        yield (f"test_encrypt_symmetric_matches_jax[{save_seed}]", *_symmetric_case(c, save_seed))
+    yield ("test_encrypt_with_public_key_matches_jax", *_public_case(c))
+    yield ("test_decrypt_matches_jax", *_decrypt_case(c))
+    for case in _VALUES:
+        yield (f"test_encode_matches_jax_host_ladder[{case}]", *_encode_case(c, case))
+    for case in ("complex vector", "wide tier"):
+        yield (f"test_decode_matches_jax_host_ladder[{case}]", *_decode_case(c, case))
+    yield ("test_round_trip_equals_jax", *_round_trip_case(c))
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))

@@ -1,9 +1,9 @@
 """The port's CKKS evaluator surface against the JAX package, on real encryptions.
 
 CKKS N=1024, bits [60, 40, 40, 40, 60], ``SecurityLevel.NONE``, the seeded
-BLAKE2XB factory; the JAX package encodes and encrypts (host sampling, host
-ladder), and its ciphertexts, plaintexts and keys are carried into the port
-as numpy arrays, so both evaluators see the same bits:
+BLAKE2XB factory; each package encodes and encrypts with its own client
+(host sampling, host ladder), and the digests of the port's inputs equal the
+JAX package's, so both evaluators see the same bits:
 
 (d) every method of the surface (negate, add, sub, add_many, square, the
     modulus switches, add_plain, sub_plain, multiply_plain on all four
@@ -15,16 +15,18 @@ as numpy arrays, so both evaluators see the same bits:
 (e) the reference's rejections, with the same exception type and message;
 (h) the port's Evaluator has every method of the JAX package's.
 
-The JAX package compiles each op once per level, seconds each on the CPU
-(about 12 s for a key switch or a rescale), so the cheap ops run at every
-level, the rotations at the first level and after ``mod_switch_to_next``
-(where the Galois key is trimmed to fewer rows), and the rest at the first
-level; ``rescale_to`` is held to the port's ``rescale_to_next``, which
-``tests/test_torch_slice.py`` holds to the JAX package's.  Every
-comparison is exact.
+The JAX package's answers to (d) and (e) are frozen in
+``tests/data/jax_answers/`` (``tests/jax_answers.py``); the test marked
+``slow`` recomputes them, compiling each op once per level (about 12 s on
+the CPU for a key switch or a rescale).  The cheap ops run at every level,
+the rotations at the first level and after ``mod_switch_to_next`` (where the
+Galois key is trimmed to fewer rows), and the rest at the first level;
+``rescale_to`` is held to the port's ``rescale_to_next``.  Every comparison
+is exact.
 """
 
 import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -32,17 +34,18 @@ import torch
 
 from seal_tpu.ckks_encoder import CKKSEncoder as JaxEncoder
 from seal_tpu.context import SealContext as JaxContext
-from seal_tpu.data import Ciphertext as JaxCiphertext, Plaintext as JaxPlaintext
+from seal_tpu.data import Plaintext as JaxPlaintext
 from seal_tpu.encryptor import Encryptor as JaxEncryptor
 from seal_tpu.evaluator import Evaluator as JaxEvaluator
 from seal_tpu.keygen import KeyGenerator as JaxKeyGenerator
 from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
-from seal_tpu.ops import u64 as JU
 from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as JaxScheme
 from seal_tpu.random import PRNGType as JaxPRNGType, UniformRandomGeneratorFactory as JaxFactory
 
 import seal_tpu_torch as P
 from seal_tpu_torch import convert as C
+
+import jax_answers as JA
 
 N = 1024
 BITS = [60, 40, 40, 40, 60]
@@ -51,91 +54,62 @@ SCALE = 2.0 ** 40
 STEPS = [1, -1, 4, 0]          # 0: the conjugation; 3 has no key and rotates by NAF [-1, 4]
 
 
-def _ct_to_port(jct):
-    return C.ciphertext_from_numpy(JU.to_np_u64(jct.data), jct.parms_id, jct.is_ntt_form, jct.scale, "cpu",
-                                   jct.correction_factor)
+ANSWERS = JA.Answers(__file__)
+HOST_PATHS = ("SEAL_TPU_DEVICE_SAMPLING", "SEAL_TPU_DEVICE_FFT", "SEAL_TPU_DEVICE_COMPOSE")
 
 
-def _ct_to_jax(pct):
-    return JaxCiphertext(data=JU.from_np_u64(C.u64_to_numpy(pct.data)), parms_id=pct.parms_id,
-                         is_ntt_form=pct.is_ntt_form, scale=pct.scale)
+def _package(side):
+    if side == "jax":
+        return SimpleNamespace(Parameters=JaxParameters, Scheme=JaxScheme, CoeffModulus=JaxCoeffModulus,
+                               Context=lambda parms: JaxContext(parms, True, JaxSecurityLevel.NONE),
+                               Factory=JaxFactory, PRNGType=JaxPRNGType, KeyGenerator=JaxKeyGenerator,
+                               Encoder=JaxEncoder, Encryptor=JaxEncryptor, Evaluator=JaxEvaluator,
+                               Plaintext=JaxPlaintext)
+    return SimpleNamespace(Parameters=P.EncryptionParameters, Scheme=P.SchemeType, CoeffModulus=P.CoeffModulus,
+                           Context=lambda parms: P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu"),
+                           Factory=P.UniformRandomGeneratorFactory, PRNGType=P.PRNGType, KeyGenerator=P.KeyGenerator,
+                           Encoder=P.CKKSEncoder, Encryptor=P.Encryptor, Evaluator=P.Evaluator, Plaintext=P.Plaintext)
 
 
-def _plain_to_port(jpt):
-    p = P.Plaintext.from_coeffs(jpt.coeff_data)
-    if jpt.is_ntt_form:
-        p = C.plaintext_from_numpy(JU.to_np_u64(jpt.rns_data), jpt.parms_id, jpt.scale, "cpu")
-    p.scale = jpt.scale
-    return p
-
-
-def _keys_to_port(jkeys, convert):
-    keys = [None if k is None else (JU.to_np_u64(k["c0"]), JU.to_np_u64(k["c1"])) for k in jkeys.keys]
-    return convert(keys, jkeys.parms_id, "cpu")
-
-
-def _same(jout, pout):
-    if isinstance(jout, JaxPlaintext):
-        assert pout.parms_id == jout.parms_id and pout.scale == jout.scale
-        np.testing.assert_array_equal(C.u64_to_numpy(pout.rns_data), JU.to_np_u64(jout.rns_data))
-        return
-    np.testing.assert_array_equal(C.u64_to_numpy(pout.data), JU.to_np_u64(jout.data))
-    assert (pout.parms_id, pout.scale, pout.is_ntt_form) == (jout.parms_id, jout.scale, jout.is_ntt_form)
+def _env(side):
+    """One package's context, evaluator and keys from the seeded factory,
+    and per level two ciphertexts and a plaintext of the ciphertexts'
+    scale; host sampling and the host ladder."""
+    k = _package(side)
+    with pytest.MonkeyPatch.context() as mp:
+        for var in HOST_PATHS:
+            mp.setenv(var, "0")
+        parms = k.Parameters(k.Scheme.CKKS)
+        parms.set_poly_modulus_degree(N)
+        parms.set_coeff_modulus(k.CoeffModulus.create(N, BITS))
+        parms.set_random_generator(k.Factory(k.PRNGType.BLAKE2XB, SEED))
+        ctx = k.Context(parms)
+        kg = k.KeyGenerator(ctx)
+        gk, rk, pk = kg.create_galois_keys_from_steps(STEPS), kg.create_relin_keys(), kg.create_public_key()
+        enc = k.Encoder(ctx)
+        slots = np.arange(N // 2)
+        pt = enc.encode(np.cos(slots / 7.0) + 0.25j * np.sin(slots / 5.0), SCALE)
+        # the seeded factory repeats its stream, so the second ciphertext
+        # comes from the public key (another c1)
+        a = k.Encryptor(ctx, secret_key=kg.secret_key).encrypt_symmetric(pt)
+        b = k.Encryptor(ctx, public_key=pk).encrypt(enc.encode(np.linspace(-1.0, 1.0, N // 2), SCALE))
+    ev = k.Evaluator(ctx)
+    nxt = ctx.first_context_data().next_context_data.parms_id
+    levels = {"first": (a, b, pt),
+              "switched": (ev.mod_switch_to_next(a), ev.mod_switch_to_next(b), ev.mod_switch_plain_to(pt, nxt))}
+    # after rescale_to_next the plaintext's scale is the products' over
+    # q_last, the ciphertexts'
+    low = ev.mod_switch_plain_to(pt, nxt)
+    low.scale = SCALE * SCALE / ctx.first_context_data().coeff_modulus_values[-1]
+    levels["rescaled"] = (*(ev.rescale_to_next(ev.multiply_plain(x, pt)) for x in (a, b)), low)
+    return {"side": side, "ctx": ctx, "ev": ev, "gk": gk, "rk": rk, "pk": pk, "Plaintext": k.Plaintext,
+            "levels": levels}
 
 
 @pytest.fixture(scope="module")
 def env():
-    """Both contexts and evaluators, keys, and per level a JAX/port pair
-    of two ciphertexts and a plaintext of the ciphertexts' scale."""
-    with pytest.MonkeyPatch.context() as mp:
-        for var in ("SEAL_TPU_DEVICE_SAMPLING", "SEAL_TPU_DEVICE_FFT", "SEAL_TPU_DEVICE_COMPOSE"):
-            mp.setenv(var, "0")
-        jp = JaxParameters(JaxScheme.CKKS)
-        jp.set_poly_modulus_degree(N)
-        jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-        jp.set_random_generator(JaxFactory(JaxPRNGType.BLAKE2XB, SEED))
-        jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
-        jkg = JaxKeyGenerator(jctx)
-        jgk, jrk, jpk = jkg.create_galois_keys_from_steps(STEPS), jkg.create_relin_keys(), jkg.create_public_key()
-        enc = JaxEncoder(jctx)
-        slots = np.arange(N // 2)
-        jpt = enc.encode(np.cos(slots / 7.0) + 0.25j * np.sin(slots / 5.0), SCALE)
-        # the seeded factory repeats its stream, so the second ciphertext
-        # comes from the public key (another c1)
-        ja = JaxEncryptor(jctx, secret_key=jkg.secret_key).encrypt_symmetric(jpt)
-        jb = JaxEncryptor(jctx, public_key=jpk).encrypt(enc.encode(np.linspace(-1.0, 1.0, N // 2), SCALE))
-    pp = P.EncryptionParameters(P.SchemeType.CKKS)
-    pp.set_poly_modulus_degree(N)
-    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    pp.set_random_generator(C.factory_from_settings(*C.factory_to_settings(jp.random_generator)))
-    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
-    jev, pev = JaxEvaluator(jctx), P.Evaluator(pctx)
-    pgk = _keys_to_port(jgk, C.galois_keys_from_numpy)
-    prk = _keys_to_port(jrk, C.relin_keys_from_numpy)
-
-    first = {"jax": (ja, jb, jpt), "port": (_ct_to_port(ja), _ct_to_port(jb), _plain_to_port(jpt))}
-    levels = {"first": first}
-    nxt = jctx.first_context_data().next_context_data.parms_id
-    levels["switched"] = {
-        "jax": (jev.mod_switch_to_next(ja), jev.mod_switch_to_next(jb), jev.mod_switch_plain_to(jpt, nxt)),
-        "port": (pev.mod_switch_to_next(first["port"][0]), pev.mod_switch_to_next(first["port"][1]),
-                 pev.mod_switch_plain_to(first["port"][2], nxt)),
-    }
-    # after rescale_to_next: the port rescales (its rescale is held to the
-    # JAX package's in tests/test_torch_slice.py) and the JAX package gets
-    # the same bits, which spares its ~12 s compile of the rescale; the
-    # plaintext's scale is the products' over q_last, the ciphertexts'
-    rescaled = [pev.rescale_to_next(pev.multiply_plain(x, first["port"][2])) for x in first["port"][:2]]
-    q_last = pctx.first_context_data().coeff_modulus_values[-1]
-    low = pev.mod_switch_plain_to(first["port"][2], nxt)
-    low.scale = SCALE * SCALE / q_last
-    jlow = jev.mod_switch_plain_to(jpt, nxt)
-    jlow.scale = low.scale
-    levels["rescaled"] = {"port": (rescaled[0], rescaled[1], low),
-                          "jax": (_ct_to_jax(rescaled[0]), _ct_to_jax(rescaled[1]), jlow)}
-    return {"jctx": jctx, "pctx": pctx, "jev": jev, "pev": pev, "jgk": jgk, "pgk": pgk, "jrk": jrk, "prk": prk,
-            "jpk": jpk, "ppk": C.public_key_from_numpy(JU.to_np_u64(jpk.data.data), jpk.parms_id, "cpu"),
-            "levels": levels}
+    """The port's side, built by its own client."""
+    return _env("port")
 
 
 def _coeff_plains(n):
@@ -149,11 +123,10 @@ def _coeff_plains(n):
     return {"general": general, "monomial": mono, "negative monomial": neg}
 
 
-def _run(env, side, level, op):
-    ev = env["jev" if side == "jax" else "pev"]
-    gk = env["jgk" if side == "jax" else "pgk"]
-    a, b, pt = env["levels"][level][side]
-    PT = JaxPlaintext if side == "jax" else P.Plaintext
+def _run(env, level, op):
+    ev, gk = env["ev"], env["gk"]
+    a, b, pt = env["levels"][level]
+    PT = env["Plaintext"]
     coeff = {name: PT.from_coeffs(v) for name, v in _coeff_plains(N).items()}
     for p in coeff.values():
         p.scale = 2.0 ** 10
@@ -194,12 +167,11 @@ def _run(env, side, level, op):
     if op == "mod_reduce_to_next":
         return ev.mod_reduce_to_next(a)
     if op == "mod_switch_plain_to":
-        last = (env["jctx"] if side == "jax" else env["pctx"]).last_parms_id
-        return ev.mod_switch_plain_to(pt, last)
+        return ev.mod_switch_plain_to(pt, env["ctx"].last_parms_id)
     if op == "mod_switch_to the last level":
-        return ev.mod_switch_to(a, (env["jctx"] if side == "jax" else env["pctx"]).last_parms_id)
+        return ev.mod_switch_to(a, env["ctx"].last_parms_id)
     if op == "mod_reduce_to the last level":
-        return ev.mod_reduce_to(a, (env["jctx"] if side == "jax" else env["pctx"]).last_parms_id)
+        return ev.mod_reduce_to(a, env["ctx"].last_parms_id)
     if op == "apply_galois":
         return ev.apply_galois(a, 3, gk)
     if op == "rotate_vector(1)":
@@ -227,18 +199,22 @@ CASES = ([("first", op) for op in CHEAP + FIRST_ONLY + ROTATIONS]
          + [("rescaled", op) for op in CHEAP])
 
 
-@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
-def test_method_equals_jax(env, level, op):
+def _method_case(env, level, op):
+    a, b, pt = env["levels"][level]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jout = _run(env, "jax", level, op)
-    pout = _run(env, "port", level, op)
-    _same(jout, pout)
+        out = _run(env, level, op)
+    return {"a": a, "b": b, "plain": pt, "galois_keys": env["gk"]}, {"out": out}
+
+
+@pytest.mark.parametrize("level,op", CASES, ids=[f"{lv}-{op}" for lv, op in CASES])
+def test_method_equals_jax(env, level, op, request):
+    ANSWERS.check(request.node.name, *_method_case(env, level, op))
 
 
 def test_rescale_to_is_rescale_to_next_down_the_chain(env):
-    pev, pctx = env["pev"], env["pctx"]
-    a, _, pt = env["levels"]["first"]["port"]
+    pev, pctx = env["ev"], env["ctx"]
+    a, _, pt = env["levels"]["first"]
     prod = pev.multiply_plain(a, pt)
     nxt = pctx.first_context_data().next_context_data.parms_id
     for got, want in ((pev.rescale_to(prod, nxt), pev.rescale_to_next(prod)), (pev.rescale_to(a, a.parms_id), a)):
@@ -246,37 +222,38 @@ def test_rescale_to_is_rescale_to_next_down_the_chain(env):
 
 
 def test_levels_are_the_ones_named(env):
-    pctx = env["pctx"]
+    pctx = env["ctx"]
     chain = [pctx.first_parms_id, pctx.first_context_data().next_context_data.parms_id]
     chain.append(pctx.get_context_data(chain[1]).next_context_data.parms_id)
     for level, pid in zip(("first", "switched", "rescaled"), chain[:2] + chain[1:2]):
-        a, b, pt = env["levels"][level]["port"]
+        a, b, pt = env["levels"][level]
         assert a.parms_id == b.parms_id == pt.parms_id == pid
         assert a.data.is_contiguous()
 
 
-def test_public_key_encryption_below_the_first_level(env):
+def _public_key_case(env):
     """The JAX package encrypts at the first level and switches down."""
-    jctx, pctx = env["jctx"], env["pctx"]
-    for pid in (pctx.first_context_data().next_context_data.parms_id, pctx.last_parms_id):
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-            jct = JaxEncryptor(jctx, public_key=env["jpk"]).encrypt_zero(pid)
-        pct = P.Encryptor(pctx, public_key=env["ppk"]).encrypt_zero(pid)
-        _same(jct, pct)
-        assert pct.parms_id == pid
+    ctx = env["ctx"]
+    encryptor = (JaxEncryptor if env["side"] == "jax" else P.Encryptor)(ctx, public_key=env["pk"])
+    pids = (ctx.first_context_data().next_context_data.parms_id, ctx.last_parms_id)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
+        outs = {f"level {i + 1}": encryptor.encrypt_zero(pid) for i, pid in enumerate(pids)}
+    assert [o.parms_id for o in outs.values()] == list(pids)
+    return {"public_key": env["pk"]}, outs
+
+
+def test_public_key_encryption_below_the_first_level(env, request):
+    ANSWERS.check(request.node.name, *_public_key_case(env))
 
 
 # -- (e) rejections ------------------------------------------------------------
 
-def _rejections(env, side):
-    ev = env["jev" if side == "jax" else "pev"]
-    gk = env["jgk" if side == "jax" else "pgk"]
-    rk = env["jrk" if side == "jax" else "prk"]
-    ctx = env["jctx" if side == "jax" else "pctx"]
-    a, b, pt = env["levels"]["first"][side]
-    low, _, low_pt = env["levels"]["switched"][side]
-    coeff = (JaxPlaintext if side == "jax" else P.Plaintext).from_coeffs([1, 2, 3])
+def _rejections(env):
+    side, ev, gk, rk, ctx = env["side"], env["ev"], env["gk"], env["rk"], env["ctx"]
+    a, b, pt = env["levels"]["first"]
+    low, _, low_pt = env["levels"]["switched"]
+    coeff = env["Plaintext"].from_coeffs([1, 2, 3])
     scaled = a.copy()
     scaled.scale = a.scale * 2
     huge = pt.copy()
@@ -338,14 +315,33 @@ def _rejections(env, side):
     }
 
 
-def test_rejections_equal_jax(env):
-    jcases, pcases = _rejections(env, "jax"), _rejections(env, "port")
-    assert jcases.keys() == pcases.keys()
-    for name in jcases:
-        for side, cases in (("jax", jcases), ("port", pcases)):
-            fn, message = cases[name]
-            with pytest.raises(ValueError, match=re.escape(message)):
-                fn()
+def _rejection_case(env):
+    """Each rejection's message, where the call raises ValueError with the
+    reference's message."""
+    outs = {}
+    for name, (fn, message) in _rejections(env).items():
+        with pytest.raises(ValueError, match=re.escape(message)):
+            fn()
+        outs[name] = message
+    return {"a": env["levels"]["first"][0]}, outs
+
+
+def test_rejections_equal_jax(env, request):
+    ANSWERS.check(request.node.name, *_rejection_case(env))
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    env = _env(side)
+    for level, op in CASES:
+        yield (f"test_method_equals_jax[{level}-{op}]", *_method_case(env, level, op))
+    yield ("test_public_key_encryption_below_the_first_level", *_public_key_case(env))
+    yield ("test_rejections_equal_jax", *_rejection_case(env))
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))
 
 
 def _scheme_context(scheme):

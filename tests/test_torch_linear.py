@@ -7,9 +7,9 @@ The step is ``golden.linear_layer_step``: multiply_plain -> rotate_vector(1)
 
 (a) N=8192 on the golden chain (bits [60, 40, 40, 40, 60]): the port's
     Evaluator and its BatchEvaluator (2 requests as one batch) on the CPU
-    equal the JAX package's Evaluator, run live (the step under one
-    ``jax.jit``, which compiles the JAX package's ops once, about 40 s on
-    the CPU, against about 55 s op by op; the bits are the same);
+    equal the JAX package's Evaluator, the step under one ``jax.jit``,
+    whose answer is frozen in ``tests/data/jax_answers/`` (the test marked
+    ``slow`` recomputes it, about a minute on the CPU);
 (b) N=32768 on the default 128-bit chain (``golden.medium_context``, D=15,
     Rn=16): the port's plain path gives ``golden.LINEAR_DIGEST`` (~15 s);
     the JAX package's side (~2 minutes) is marked ``slow``.
@@ -18,7 +18,6 @@ Every comparison is exact equality of reduced residues.
 """
 
 import jax
-import numpy as np
 import pytest
 import torch
 
@@ -36,6 +35,8 @@ from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_nump
                                     relin_keys_from_numpy, u64_to_numpy)
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
+
+import jax_answers as JA
 
 S = golden.LINEAR_SCALE
 
@@ -73,21 +74,55 @@ def _port_inputs(ctx, inputs):
             relin_keys_from_numpy([r], ctx.key_parms_id, "cpu"))
 
 
-def test_linear_step_equals_jax_at_n8192():
+ANSWERS = JA.Answers(__file__)
+
+
+def _n8192_contexts(side):
     n, bits = golden.GOLDEN_N, list(golden.GOLDEN_BITS)
-    jp = JaxParameters(JaxScheme.CKKS)
-    jp.set_poly_modulus_degree(n)
-    jp.set_coeff_modulus(JaxCoeffModulus.create(n, bits))
-    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
     pp = P.EncryptionParameters(P.SchemeType.CKKS)
     pp.set_poly_modulus_degree(n)
     pp.set_coeff_modulus(P.CoeffModulus.create(n, bits))
     pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+    if side == "port":
+        return pctx, None
+    jp = JaxParameters(JaxScheme.CKKS)
+    jp.set_poly_modulus_degree(n)
+    jp.set_coeff_modulus(JaxCoeffModulus.create(n, bits))
+    return pctx, JaxContext(jp, True, JaxSecurityLevel.NONE)
+
+
+def _step_inputs(inputs):
+    ct, pt, (g0, g1), (r0, r1) = inputs
+    return {"ciphertext": ct, "plain": pt, "galois key c0": g0, "galois key c1": g1, "relin key c0": r0,
+            "relin key c1": r1}
+
+
+def _n8192_case(side):
+    pctx, jctx = _n8192_contexts(side)
     inputs = golden.linear_inputs(pctx)
-    want = _jax_step(jctx, inputs, jit=True)
+    if side == "jax":
+        out = _jax_step(jctx, inputs, jit=True)
+    else:
+        out = golden.linear_layer_step(Evaluator(pctx), *_port_inputs(pctx, inputs))
+    return _step_inputs(inputs), {"out": out if side == "jax" else out.data}
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    yield ("test_linear_step_equals_jax_at_n8192", *_n8192_case(side))
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))
+
+
+def test_linear_step_equals_jax_at_n8192(request):
+    pctx, _ = _n8192_contexts("port")
+    inputs = golden.linear_inputs(pctx)
     ct, pt, gk, rk = _port_inputs(pctx, inputs)
     out = golden.linear_layer_step(Evaluator(pctx), ct, pt, gk, rk)
-    np.testing.assert_array_equal(u64_to_numpy(out.data), want)
+    ANSWERS.check(request.node.name, _step_inputs(inputs), {"out": out.data})
     cd = pctx.first_context_data()
     assert out.parms_id == cd.next_context_data.parms_id and out.scale == S ** 3 / cd.coeff_modulus_values[-1]
     # two requests as one batch equal the requests one by one

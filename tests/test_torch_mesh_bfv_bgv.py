@@ -12,8 +12,9 @@ coefficient plaintexts below t, carried across as numpy uint64 arrays:
     mesh and on the (host 2, data 2, limb 2) mesh with replicated keys
     equals the batch on one device; on the (data 4, limb 2) mesh it also
     equals the JAX package's ``BatchEvaluator`` on its
-    ``make_mesh(8, limb_parallel=2)``; the JAX side of the methods in
-    ``JAX_SLOW``, which compile for 5-10 s each there, is marked ``slow``;
+    ``make_mesh(8, limb_parallel=2)``, whose answers are frozen in
+    ``tests/data/jax_answers/`` (``tests/jax_answers.py``; the test marked
+    ``slow`` recomputes them);
 (b) ``Evaluator(mesh=...)``: the methods the batch evaluator lacks
     (add_many, mod_switch_to, exponentiate) and a chain at N=1024 with k=5
     data limbs, split 3/2 over the limb axis, against the evaluator
@@ -27,6 +28,8 @@ coefficient plaintexts below t, carried across as numpy uint64 arrays:
 
 Every comparison is exact equality.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -44,11 +47,13 @@ from seal_tpu.params import EncryptionParameters as JaxParameters, SchemeType as
 import seal_tpu_torch as P
 from seal_tpu_torch import dryrun
 from seal_tpu_torch.convert import (ciphertext_from_numpy, galois_keys_from_numpy, plaintext_from_numpy,
-                                    relin_keys_from_numpy, u64_from_numpy, u64_to_numpy)
+                                    relin_keys_from_numpy, u64_from_numpy)
 from seal_tpu_torch.ops import rns as R
 from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
 from seal_tpu_torch.parallel.mesh import make_mesh, split_bounds
 from seal_tpu_torch.parallel.shard_ops import gather_add_mod
+
+import jax_answers as JA
 
 N, BITS, B = 64, [40, 30, 30, 30, 40], 8
 CPU8 = ["cpu"] * 8
@@ -62,16 +67,7 @@ METHODS = ("multiply", "square", "relinearize", "apply_galois", "rotate_rows", "
            "mod_switch_to_next", "mod_reduce_to_next", "add", "sub", "negate", "add_plain", "sub_plain",
            "multiply_plain, coefficient plain", "multiply_plain, monomial", "multiply_plain, NTT plain",
            "transform", "multiply_many")
-# the JAX package's sharded methods that compile for 5-10 s each on the CPU
-# (its key switches, its NTT-domain plain products of BFV batches), marked
-# slow; the tier-1 run keeps BFV's multiply (its base conversions), BGV's
-# mod_switch_to_next (the last limb's exchange), BGV's balanced add and
-# sub, and the per-limb ops
-JAX_SLOW = {("BFV", "relinearize"), ("BFV", "apply_galois"), ("BFV", "rotate_rows"), ("BFV", "rotate_columns"),
-            ("BFV", "multiply_many"),
-            ("BFV", "multiply_plain, coefficient plain"), ("BFV", "multiply_plain, NTT plain"),
-            ("BGV", "relinearize"), ("BGV", "apply_galois"), ("BGV", "rotate_rows"), ("BGV", "rotate_columns"),
-            ("BGV", "multiply_many")}
+ANSWERS = JA.Answers(__file__)
 
 
 def _residues(rng, moduli, lead, n=N):
@@ -140,7 +136,12 @@ def _port_ops(s, bev, shard=lambda b: b):
               "ntt": plaintext_from_numpy(s["ntt_plain"], ctx.first_parms_id, 1.0, "cpu")}
     rk = relin_keys_from_numpy(s["relin"], ctx.key_parms_id, "cpu")
     gk = galois_keys_from_numpy(s["galois"], ctx.key_parms_id, "cpu")
-    return b1, _ops(bev, plains, gk, rk, b2)
+    return b1, _ops(bev, plains, gk, rk, b2), _inputs(b1, b2, rk, gk, plains)
+
+
+def _inputs(b1, b2, rk, gk, plains):
+    return {"batch": b1, "other": b2, "relin keys": rk, "galois keys": gk,
+            **{f"{name} plain": p for name, p in plains.items()}}
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -148,67 +149,72 @@ def _port_ops(s, bev, shard=lambda b: b):
 @pytest.mark.parametrize("scheme", ["BFV", "BGV"])
 def test_batch_on_a_mesh_equals_one_device(inputs, scheme, method, mesh):
     s = inputs[scheme]
-    one_batch, one_ops = _port_ops(s, BatchEvaluator(s["ctx"]))
+    one_batch, one_ops, _ = _port_ops(s, BatchEvaluator(s["ctx"]))
     bev = BatchEvaluator(s["ctx"], make_mesh(8, devices=CPU8, **MESHES[mesh]))
-    batch, ops = _port_ops(s, bev, bev.shard)
+    batch, ops, _ = _port_ops(s, bev, bev.shard)
     got, want = ops[method](batch), one_ops[method](one_batch)
     assert torch.equal(got.unshard().data, want.data)
     assert (got.parms_id, got.is_ntt_form, got.correction_factor) == (want.parms_id, want.is_ntt_form,
                                                                       want.correction_factor)
 
 
-@pytest.fixture(scope="module")
-def jax_side(inputs):
-    """The JAX package's sharded batch evaluator per scheme, with its
-    inputs; each method's output is computed on first use."""
+def _jax_ops(s, scheme):
+    """The JAX package's sharded batch evaluator on its (data 4, limb 2)
+    mesh, its batch, its ops and their inputs."""
     hem = jax_make_mesh(8, limb_parallel=2)
-    sides = {}
-    for scheme, s in inputs.items():
-        jp = JaxParameters(getattr(JaxScheme, scheme))
-        jp.set_poly_modulus_degree(N)
-        jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-        jp.set_plain_modulus(JaxPlainModulus.batching(N, 20))
-        jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
-        assert jctx.first_parms_id == s["ctx"].first_parms_id
-        jbev = JaxBatchEvaluator(jctx, hem)
-        f1, f2 = FACTORS[scheme]
-        b1, b2 = (jbev.shard(JaxCiphertextBatch(JU.from_np_u64(d), jctx.first_parms_id, s["ntt"], 1.0, f))
-                  for d, f in zip(s["data"], (f1, f2)))
-        rk = JaxRelinKeys()
-        rk.parms_id = jctx.key_parms_id
-        rk.keys = [{"c0": JU.from_np_u64(c0), "c1": JU.from_np_u64(c1), "seeds": None} for c0, c1 in s["relin"]]
-        gk = JaxGaloisKeys()
-        gk.parms_id = jctx.key_parms_id
-        gk.keys = [None if k is None else {"c0": JU.from_np_u64(k[0]), "c1": JU.from_np_u64(k[1])}
-                   for k in s["galois"]]
-        ntt_plain = JaxPlaintext()
-        ntt_plain.parms_id, ntt_plain.rns_data = jctx.first_parms_id, JU.from_np_u64(s["ntt_plain"])
-        plains = {"coeff": JaxPlaintext.from_coeffs(s["coeff"]), "monomial": JaxPlaintext.from_coeffs(s["monomial"]),
-                  "ntt": ntt_plain}
-        sides[scheme] = (hem, b1, _ops(jbev, plains, gk, rk, b2), {})
-    return sides
+    jp = JaxParameters(getattr(JaxScheme, scheme))
+    jp.set_poly_modulus_degree(N)
+    jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
+    jp.set_plain_modulus(JaxPlainModulus.batching(N, 20))
+    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    assert jctx.first_parms_id == s["ctx"].first_parms_id
+    jbev = JaxBatchEvaluator(jctx, hem)
+    f1, f2 = FACTORS[scheme]
+    b1, b2 = (jbev.shard(JaxCiphertextBatch(JU.from_np_u64(d), jctx.first_parms_id, s["ntt"], 1.0, f))
+              for d, f in zip(s["data"], (f1, f2)))
+    rk = JaxRelinKeys()
+    rk.parms_id = jctx.key_parms_id
+    rk.keys = [{"c0": JU.from_np_u64(c0), "c1": JU.from_np_u64(c1), "seeds": None} for c0, c1 in s["relin"]]
+    gk = JaxGaloisKeys()
+    gk.parms_id = jctx.key_parms_id
+    gk.keys = [None if k is None else {"c0": JU.from_np_u64(k[0]), "c1": JU.from_np_u64(k[1])} for k in s["galois"]]
+    ntt_plain = JaxPlaintext()
+    ntt_plain.parms_id, ntt_plain.rns_data = jctx.first_parms_id, JU.from_np_u64(s["ntt_plain"])
+    plains = {"coeff": JaxPlaintext.from_coeffs(s["coeff"]), "monomial": JaxPlaintext.from_coeffs(s["monomial"]),
+              "ntt": ntt_plain}
+    return hem, b1, _ops(jbev, plains, gk, rk, b2), _inputs(b1, b2, rk, gk, plains)
 
 
-def _jax_output(jax_side, scheme, method):
-    hem, batch, ops, done = jax_side[scheme]
-    if method not in done:
-        with hem.mesh:
-            out = ops[method](batch)
-        done[method] = (JU.to_np_u64(out.data), out.parms_id, out.is_ntt_form, out.correction_factor)
-    return done[method]
+JAX_CASES = [(m, s) for s in ("BFV", "BGV") for m in METHODS]
 
 
-@pytest.mark.parametrize("method, scheme", [
-    pytest.param(m, s, marks=pytest.mark.slow if (s, m) in JAX_SLOW else ())
-    for s in ("BFV", "BGV") for m in METHODS])
-def test_batch_on_a_mesh_equals_the_jax_package_on_its_mesh(inputs, jax_side, scheme, method):
+@pytest.mark.parametrize("method, scheme", JAX_CASES)
+def test_batch_on_a_mesh_equals_the_jax_package_on_its_mesh(inputs, scheme, method, request):
     s = inputs[scheme]
     bev = BatchEvaluator(s["ctx"], make_mesh(8, devices=CPU8, limb_parallel=2))
-    batch, ops = _port_ops(s, bev, bev.shard)
-    got = ops[method](batch)
-    data, parms_id, ntt, factor = _jax_output(jax_side, scheme, method)
-    np.testing.assert_array_equal(u64_to_numpy(got.unshard().data), data)
-    assert (got.parms_id, got.is_ntt_form, got.correction_factor) == (parms_id, ntt, factor)
+    batch, ops, ins = _port_ops(s, bev, bev.shard)
+    ANSWERS.check(request.node.name, ins, {"out": ops[method](batch)})
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    for scheme in ("BFV", "BGV"):
+        s = _scheme_inputs(scheme)
+        if side == "jax":
+            hem, batch, ops, ins = _jax_ops(s, scheme)
+            context = hem.mesh
+        else:
+            bev = BatchEvaluator(s["ctx"], make_mesh(8, devices=CPU8, limb_parallel=2))
+            (batch, ops, ins), context = _port_ops(s, bev, bev.shard), contextlib.nullcontext()
+        for method in METHODS:
+            with context:
+                out = ops[method](batch)
+            yield f"test_batch_on_a_mesh_equals_the_jax_package_on_its_mesh[{method}-{scheme}]", ins, {"out": out}
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))
 
 
 # -- (b) Evaluator(mesh=...) -------------------------------------------------------

@@ -23,10 +23,11 @@ made with numpy from a seed and carried across as numpy uint64 arrays:
     the (data 4, limb 2) mesh (one data rank empty), to the batch on one
     device.
 
-Every comparison is exact equality.
+The JAX package's answers to (a), (b) and (f) are frozen in
+``tests/data/jax_answers/`` (``tests/jax_answers.py``); the test marked
+``slow`` recomputes them.  Every comparison is exact equality.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -50,6 +51,8 @@ from seal_tpu_torch.parallel.batch import BatchEvaluator, CiphertextBatch
 from seal_tpu_torch.parallel.mesh import PartitionSpec, make_mesh, shard, shard_kswitch_key, split_bounds
 from seal_tpu_torch.parallel.shard_ops import gather_add_mod
 
+import jax_answers as JA
+
 N, BITS, B, SCALE = 64, [40, 30, 30, 30, 40], 8, 2.0 ** 30
 CPU8 = ["cpu"] * 8
 MESHES = {
@@ -63,44 +66,59 @@ def _residues(rng, moduli, lead):
     return rng.integers(0, q, (*lead, len(moduli), N), dtype=np.uint64)
 
 
-@pytest.fixture(scope="module")
-def state():
-    """Both contexts, the numpy inputs, and the JAX package's batched outputs."""
+ANSWERS = JA.Answers(__file__)
+PIPELINE = ("multiply", "relinearize", "rescale_to_next")
+ELEMENTWISE = ("add", "sub", "negate", "square")
+
+
+def _jax_context():
     jp = JaxParameters(JaxScheme.CKKS)
     jp.set_poly_modulus_degree(N)
     jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    return JaxContext(jp, True, JaxSecurityLevel.NONE)
+
+
+def _port_context():
     pp = P.EncryptionParameters(P.SchemeType.CKKS)
     pp.set_poly_modulus_degree(N)
     pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
-    assert jctx.first_parms_id == pctx.first_parms_id
+    return P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
 
+
+@pytest.fixture(scope="module")
+def state():
+    """The port's context and the numpy inputs."""
+    return _state()
+
+
+def _state():
+    pctx = _port_context()
     rng = np.random.default_rng(2024)
     qv = pctx.first_context_data().coeff_modulus_values
     d1, d2 = _residues(rng, qv, (B, 2)), _residues(rng, qv, (B, 2))
     kc0, kc1 = (_residues(rng, pctx.key_context_data().coeff_modulus_values, (len(qv),)) for _ in range(2))
+    rk = relin_keys_from_numpy([(kc0, kc1)], pctx.key_parms_id, "cpu")
+    return {"ctx": pctx, "d1": d1, "d2": d2, "rk": rk, "kc": (kc0, kc1)}
 
+
+def _state_inputs(s):
+    return {"d1": s["d1"], "d2": s["d2"], "relin key c0": s["kc"][0], "relin key c1": s["kc"][1]}
+
+
+def _jax_outputs(s):
+    """The JAX package's batched pipeline and elementwise ops."""
+    jctx = _jax_context()
+    assert jctx.first_parms_id == s["ctx"].first_parms_id
     jrk = JaxRelinKeys()
     jrk.parms_id = jctx.key_parms_id
-    jrk.keys = [{"c0": JU.from_np_u64(kc0), "c1": JU.from_np_u64(kc1), "seeds": None}]
+    jrk.keys = [{"c0": JU.from_np_u64(s["kc"][0]), "c1": JU.from_np_u64(s["kc"][1]), "seeds": None}]
     jbev = JaxBatchEvaluator(jctx)
+    jb1, jb2 = (JaxCiphertextBatch(JU.from_np_u64(d), jctx.first_parms_id, True, SCALE, 1) for d in (s["d1"], s["d2"]))
+    return dict(zip(PIPELINE, _pipeline(jbev, jb1, jb2, jrk)), **_elementwise(jbev, jb1, jb2))
 
-    def jbatch(d):
-        return JaxCiphertextBatch(JU.from_np_u64(d), jctx.first_parms_id, True, SCALE, 1)
 
-    jb1, jb2 = jbatch(d1), jbatch(d2)
-    jprod = jbev.multiply(jb1, jb2)
-    jrelin = jbev.relinearize(jprod, jrk)
-    jout = jbev.rescale_to_next(jrelin)
-    jax_out = {
-        "multiply": JU.to_np_u64(jprod.data), "relinearize": JU.to_np_u64(jrelin.data),
-        "rescale_to_next": JU.to_np_u64(jout.data), "scale": jout.scale, "parms_id": jout.parms_id,
-        "add": JU.to_np_u64(jbev.add(jb1, jb2).data), "sub": JU.to_np_u64(jbev.sub(jb1, jb2).data),
-        "negate": JU.to_np_u64(jbev.negate(jb1).data), "square": JU.to_np_u64(jbev.square(jb1).data),
-    }
-    rk = relin_keys_from_numpy([(kc0, kc1)], pctx.key_parms_id, "cpu")
-    return {"ctx": pctx, "d1": d1, "d2": d2, "rk": rk, "kc": (kc0, kc1), "jax": jax_out}
+def _elementwise(bev, b1, b2):
+    return {"add": bev.add(b1, b2), "sub": bev.sub(b1, b2), "negate": bev.negate(b1), "square": bev.square(b1)}
 
 
 def _batches(s):
@@ -115,13 +133,11 @@ def _pipeline(bev, b1, b2, rk):
     return prod, relin, bev.rescale_to_next(relin)
 
 
-def test_batched_pipeline_matches_jax_and_single_evaluator(state):
+def test_batched_pipeline_matches_jax_and_single_evaluator(state, request):
     b1, b2 = _batches(state)
     outs = _pipeline(BatchEvaluator(state["ctx"]), b1, b2, state["rk"])
-    for name, got in zip(("multiply", "relinearize", "rescale_to_next"), outs):
-        np.testing.assert_array_equal(u64_to_numpy(got.data), state["jax"][name], err_msg=name)
+    ANSWERS.check(request.node.name, _state_inputs(state), dict(zip(PIPELINE, outs)))
     out = outs[-1]
-    assert out.scale == state["jax"]["scale"] and out.parms_id == state["jax"]["parms_id"]
     ev = Evaluator(state["ctx"])
     for i in range(B):
         a = ciphertext_from_numpy(state["d1"][i], state["ctx"].first_parms_id, True, SCALE, "cpu")
@@ -131,13 +147,13 @@ def test_batched_pipeline_matches_jax_and_single_evaluator(state):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-def test_sharded_pipeline_matches_jax_and_unsharded(state, mesh):
+def test_sharded_pipeline_matches_jax_and_unsharded(state, mesh, request):
     hem = make_mesh(8, devices=CPU8, **MESHES[mesh])
     bev = BatchEvaluator(state["ctx"], hem)
     b1, b2 = (bev.shard(b) for b in _batches(state))
-    for name, got in zip(("multiply", "relinearize", "rescale_to_next"), _pipeline(bev, b1, b2, state["rk"])):
-        assert got.data.spec == hem.ct_batch_spec()
-        np.testing.assert_array_equal(u64_to_numpy(got.data.unshard()), state["jax"][name], err_msg=name)
+    outs = _pipeline(bev, b1, b2, state["rk"])
+    assert all(got.data.spec == hem.ct_batch_spec() for got in outs)
+    ANSWERS.check(request.node.name, _state_inputs(state), dict(zip(PIPELINE, outs)))
     b1, b2 = _batches(state)
     want = _pipeline(BatchEvaluator(state["ctx"]), b1, b2, state["rk"])[-1]
     got = _pipeline(bev, bev.shard(b1), bev.shard(b2), state["rk"])[-1]
@@ -163,13 +179,11 @@ def test_rescale_splits_the_remaining_limbs_like_tensor_split(state):
 
 
 @pytest.mark.parametrize("mesh", [None, *MESHES])
-def test_batched_add_sub_negate_square_match_jax(state, mesh):
+def test_batched_add_sub_negate_square_match_jax(state, mesh, request):
     hem = None if mesh is None else make_mesh(8, devices=CPU8, **MESHES[mesh])
     bev = BatchEvaluator(state["ctx"], hem)
     b1, b2 = (bev.shard(b) for b in _batches(state))
-    for name, got in (("add", bev.add(b1, b2)), ("sub", bev.sub(b1, b2)), ("negate", bev.negate(b1)),
-                      ("square", bev.square(b1))):
-        np.testing.assert_array_equal(u64_to_numpy(got.unshard().data), state["jax"][name], err_msg=name)
+    ANSWERS.check(request.node.name, _state_inputs(state), _elementwise(bev, b1, b2))
 
 
 def test_evaluator_on_a_mesh_matches_the_evaluator_without(state):
@@ -340,16 +354,13 @@ JAX_BATCH_OPS = ("apply_galois", "rotate_vector(1)", "rotate_vector(3), NAF", "m
 
 @pytest.fixture(scope="module")
 def galois_state():
-    """A batch of 3, a plaintext, a coefficient plaintext, Galois keys of
-    uniform residues, and the JAX package's batched outputs."""
-    jp = JaxParameters(JaxScheme.CKKS)
-    jp.set_poly_modulus_degree(N)
-    jp.set_coeff_modulus(JaxCoeffModulus.create(N, BITS))
-    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
-    pp = P.EncryptionParameters(P.SchemeType.CKKS)
-    pp.set_poly_modulus_degree(N)
-    pp.set_coeff_modulus(P.CoeffModulus.create(N, BITS))
-    pctx = P.SealContext(pp, True, P.SecurityLevel.NONE, device="cpu")
+    """A batch of 3, a plaintext, a coefficient plaintext and Galois keys
+    of uniform residues."""
+    return _galois_state()
+
+
+def _galois_state():
+    pctx = _port_context()
     rng = np.random.default_rng(6)
     qv = pctx.first_context_data().coeff_modulus_values
     key_q = pctx.key_context_data().coeff_modulus_values
@@ -362,22 +373,27 @@ def galois_state():
     keys = [None] * N
     for e in elts:
         keys[(e - 1) >> 1] = (_residues(rng, key_q, (len(qv),)), _residues(rng, key_q, (len(qv),)))
+    pt = plaintext_from_numpy(plain, pctx.first_parms_id, SCALE, "cpu")
+    return {"ctx": pctx, "data": data, "plain": plain, "pt": pt, "coeffs": coeffs, "keys": keys,
+            "gk": galois_keys_from_numpy(keys, pctx.key_parms_id, "cpu")}
 
+
+def _galois_inputs(s):
+    return {"data": s["data"], "plain": s["plain"], "general": s["coeffs"]["general"],
+            "monomial": s["coeffs"]["monomial"], "galois keys": s["gk"]}
+
+
+def _jax_galois_outputs(s):
+    """The JAX package's batch on the ops of JAX_BATCH_OPS."""
+    jctx = _jax_context()
     jgk = JaxGaloisKeys()
     jgk.parms_id = jctx.key_parms_id
-    jgk.keys = [None if k is None else {"c0": JU.from_np_u64(k[0]), "c1": JU.from_np_u64(k[1])} for k in keys]
+    jgk.keys = [None if k is None else {"c0": JU.from_np_u64(k[0]), "c1": JU.from_np_u64(k[1])} for k in s["keys"]]
     jpt = JaxPlaintext()
-    jpt.parms_id, jpt.scale, jpt.rns_data = jctx.first_parms_id, SCALE, JU.from_np_u64(plain)
-    jbev = JaxBatchEvaluator(jctx)
-    jb = JaxCiphertextBatch(JU.from_np_u64(data), jctx.first_parms_id, True, SCALE, 1)
-    want = {}
-    for name, fn in _galois_ops(jbev, jpt, JaxPlaintext, coeffs, jgk):
-        if name in JAX_BATCH_OPS:
-            out = fn(jb)
-            want[name] = (JU.to_np_u64(out.data), out.parms_id, out.scale, out.is_ntt_form)
-    pt = plaintext_from_numpy(plain, pctx.first_parms_id, SCALE, "cpu")
-    return {"ctx": pctx, "data": data, "pt": pt, "coeffs": coeffs,
-            "gk": galois_keys_from_numpy(keys, pctx.key_parms_id, "cpu"), "jax": want}
+    jpt.parms_id, jpt.scale, jpt.rns_data = jctx.first_parms_id, SCALE, JU.from_np_u64(s["plain"])
+    jb = JaxCiphertextBatch(JU.from_np_u64(s["data"]), jctx.first_parms_id, True, SCALE, 1)
+    return {name: fn(jb) for name, fn in _galois_ops(JaxBatchEvaluator(jctx), jpt, JaxPlaintext, s["coeffs"], jgk)
+            if name in JAX_BATCH_OPS}
 
 
 def _galois_ops(ev, pt, plain_type, coeffs, gk):
@@ -410,15 +426,13 @@ def _galois_batch(s):
 
 
 @pytest.mark.parametrize("op", range(13))
-def test_batched_galois_and_plain_ops_match_jax_and_single_evaluator(galois_state, op):
+def test_batched_galois_and_plain_ops_match_jax_and_single_evaluator(galois_state, op, request):
     s = galois_state
     bev = BatchEvaluator(s["ctx"])
     name, fn = _galois_ops(bev, s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op]
     got = fn(_galois_batch(s))
     if name in JAX_BATCH_OPS:
-        data, parms_id, scale, ntt = s["jax"][name]
-        np.testing.assert_array_equal(u64_to_numpy(got.data), data, err_msg=name)
-        assert (got.parms_id, got.scale, got.is_ntt_form) == (parms_id, scale, ntt)
+        ANSWERS.check(request.node.name, _galois_inputs(s), {name: got})
     _, single = _galois_ops(Evaluator(s["ctx"]), s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op]
     for i in range(GB):
         a = ciphertext_from_numpy(s["data"][i], s["ctx"].first_parms_id, True, SCALE, "cpu")
@@ -437,3 +451,36 @@ def test_batched_galois_and_plain_ops_on_a_mesh_match_one_device(galois_state, o
     want = _galois_ops(one, s["pt"], P.Plaintext, s["coeffs"], s["gk"])[op][1](_galois_batch(s))
     assert torch.equal(got.unshard().data, want.data), name
     assert (got.scale, got.parms_id, got.is_ntt_form) == (want.scale, want.parms_id, want.is_ntt_form)
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers;
+    the port's side is its BatchEvaluator on one device."""
+    s = _state()
+    if side == "jax":
+        outs = _jax_outputs(s)
+    else:
+        bev = BatchEvaluator(s["ctx"])
+        b1, b2 = _batches(s)
+        outs = dict(zip(PIPELINE, _pipeline(bev, b1, b2, s["rk"])), **_elementwise(bev, b1, b2))
+    pipe, elem, inputs = {k: outs[k] for k in PIPELINE}, {k: outs[k] for k in ELEMENTWISE}, _state_inputs(s)
+    yield "test_batched_pipeline_matches_jax_and_single_evaluator", inputs, pipe
+    for mesh in MESHES:
+        yield f"test_sharded_pipeline_matches_jax_and_unsharded[{mesh}]", inputs, pipe
+    for mesh in (None, *MESHES):
+        yield f"test_batched_add_sub_negate_square_match_jax[{mesh}]", inputs, elem
+    g = _galois_state()
+    if side == "jax":
+        gouts = _jax_galois_outputs(g)
+    else:
+        ops = _galois_ops(BatchEvaluator(g["ctx"]), g["pt"], P.Plaintext, g["coeffs"], g["gk"])
+        gouts = {name: fn(_galois_batch(g)) for name, fn in ops if name in JAX_BATCH_OPS}
+    for op, (name, _) in enumerate(_galois_ops(None, None, P.Plaintext, g["coeffs"], None)):
+        if name in JAX_BATCH_OPS:
+            yield (f"test_batched_galois_and_plain_ops_match_jax_and_single_evaluator[{op}]", _galois_inputs(g),
+                   {name: gouts[name]})
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))

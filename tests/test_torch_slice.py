@@ -3,15 +3,16 @@
 (a) ``build_ckks_mult_relin_rescale`` at N=8192, bits [60, 40, 40, 40, 60]
     on the golden splitmix64 inputs: the port on the CPU equals
     ``jax.jit(seal_tpu.pipeline.build_ckks_mult_relin_rescale(ctx))`` bit
-    for bit, and both give ``golden.GOLDEN_DIGEST``.
-(b) N=1024 with real keys and ciphertexts from ``__graft_entry__._build``,
-    carried across with ``convert``: Evaluator multiply -> relinearize ->
-    rescale_to_next equals the JAX package's in data, scale and parms_id.
+    for bit, and gives ``golden.GOLDEN_DIGEST``.
+(b) N=1024 with real keys and ciphertexts from the client of
+    ``__graft_entry__._build`` (each package's own, on host sampling and the
+    host ladder): Evaluator multiply -> relinearize -> rescale_to_next
+    equals the JAX package's in data, scale and parms_id.
 (c) importing every module of the port loads neither JAX nor ``seal_tpu``.
 (d) a context with no device on a machine without CUDA raises.
 (e) the same pipeline at N=65536, bits [60, 40, 40, 60] (the size where the
-    card runs every NTT on the four-step stage kernel): the JAX pipeline and
-    the port's plain path both give ``golden.LARGE_DIGEST``.
+    card runs every NTT on the four-step stage kernel): the port's plain
+    path equals the JAX pipeline and gives ``golden.LARGE_DIGEST``.
 (f) the same pipeline at N=32768 on the default 128-bit chain
     (``golden.medium_context``: 16 moduli, D=15, Rn=16, kernel B's largest
     fused shape on the card): the port's plain path gives
@@ -20,6 +21,10 @@
 
 A CKKS user's whole computation at N=1024 (keygen to decode) is held
 against the JAX package in ``tests/test_torch_client.py``.
+
+The JAX package's answers to (a), (b) and (e) are frozen in
+``tests/data/jax_answers/`` (``tests/jax_answers.py``); the tests marked
+``slow`` recompute them and the JAX side of ``GOLDEN_DIGEST``.
 
 Every comparison is exact equality of reduced residues: the slice is
 integer arithmetic.
@@ -34,7 +39,6 @@ import pytest
 import torch
 
 from seal_tpu.context import SealContext as JaxContext
-from seal_tpu.data import Ciphertext as JaxCiphertext, RelinKeys as JaxRelinKeys
 from seal_tpu.evaluator import Evaluator as JaxEvaluator
 from seal_tpu.modulus import CoeffModulus as JaxCoeffModulus, SecurityLevel as JaxSecurityLevel
 from seal_tpu.ops import u64 as JU
@@ -50,6 +54,8 @@ from seal_tpu_torch.convert import (
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.pipeline import build_ckks_mult_relin_rescale
 
+import jax_answers as JA
+
 
 def _port_context(n, bits, device="cpu"):
     parms = P.EncryptionParameters(P.SchemeType.CKKS)
@@ -58,72 +64,99 @@ def _port_context(n, bits, device="cpu"):
     return P.SealContext(parms, True, P.SecurityLevel.NONE, device=device)
 
 
-@pytest.fixture(scope="module")
-def golden_outputs():
-    """Outputs of the JAX pipeline and of the port's plain path (CPU) at
-    N=8192 on the golden inputs, and the port's context."""
-    n, bits = golden.GOLDEN_N, list(golden.GOLDEN_BITS)
+ANSWERS = JA.Answers(__file__)
+ARGS = ("request 1", "request 2", "relin key c0", "relin key c1")
+
+
+def _jax_context(n, bits):
     jp = JaxParameters(JaxScheme.CKKS)
     jp.set_poly_modulus_degree(n)
     jp.set_coeff_modulus(JaxCoeffModulus.create(n, bits))
-    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
+    return JaxContext(jp, True, JaxSecurityLevel.NONE)
+
+
+def _pipeline_case(side, n, bits):
+    """One package's pipeline on the golden inputs; with the port's context."""
     pctx = _port_context(n, bits)
-    assert jctx.first_parms_id == pctx.first_parms_id
-    d1, d2 = golden.request_inputs(pctx, golden.GOLDEN_REQUEST_SEED)
-    kc0, kc1 = golden.key_inputs(pctx, golden.GOLDEN_KEY_SEED)
-    args = (d1, d2, kc0, kc1)
-    jax_out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
-    port_out = u64_to_numpy(build_ckks_mult_relin_rescale(pctx)(*(u64_from_numpy(a, "cpu") for a in args)))
-    return jax_out, port_out, pctx
+    args = (*golden.request_inputs(pctx, golden.GOLDEN_REQUEST_SEED), *golden.key_inputs(pctx, golden.GOLDEN_KEY_SEED))
+    if side == "jax":
+        jctx = _jax_context(n, bits)
+        assert jctx.first_parms_id == pctx.first_parms_id
+        out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
+    else:
+        out = u64_to_numpy(build_ckks_mult_relin_rescale(pctx)(*(u64_from_numpy(a, "cpu") for a in args)))
+    return dict(zip(ARGS, args)), {"out": out}, pctx
 
 
-def test_jax_pipeline_gives_golden_digest(golden_outputs):
-    jax_out, _, _ = golden_outputs
-    assert jax_out.shape == (2, len(golden.GOLDEN_BITS) - 2, golden.GOLDEN_N)
-    assert golden.digest(jax_out) == golden.GOLDEN_DIGEST
+@pytest.fixture(scope="module")
+def golden_outputs():
+    """The port's plain path (CPU) at N=8192 on the golden inputs, with its
+    inputs and context."""
+    return _pipeline_case("port", golden.GOLDEN_N, list(golden.GOLDEN_BITS))
 
 
-def test_port_pipeline_equals_jax_at_n8192(golden_outputs):
-    jax_out, port_out, pctx = golden_outputs
-    np.testing.assert_array_equal(port_out, jax_out)
+@pytest.mark.slow
+def test_jax_pipeline_gives_golden_digest():
+    _, outputs, _ = _pipeline_case("jax", golden.GOLDEN_N, list(golden.GOLDEN_BITS))
+    assert outputs["out"].shape == (2, len(golden.GOLDEN_BITS) - 2, golden.GOLDEN_N)
+    assert golden.digest(outputs["out"]) == golden.GOLDEN_DIGEST
+
+
+def test_port_pipeline_equals_jax_at_n8192(golden_outputs, request):
+    inputs, outputs, pctx = golden_outputs
+    ANSWERS.check(request.node.name, inputs, outputs)
+    port_out = outputs["out"]
     assert golden.digest(port_out) == golden.GOLDEN_DIGEST
     q = np.array(pctx.first_context_data().next_context_data.coeff_modulus_values, dtype=np.uint64)
     assert (port_out < q[None, :, None]).all()
 
 
+def _evaluator_case(side):
+    """Multiply -> relinearize -> rescale_to_next on real N=1024 ciphertexts
+    of the client of ``__graft_entry__._build`` (its seed, encoder values
+    and symmetric encryptions), on host sampling and the host ladder."""
+    if side == "jax":
+        from seal_tpu.ckks_encoder import CKKSEncoder as Encoder
+        from seal_tpu.encryptor import Encryptor
+        from seal_tpu.keygen import KeyGenerator
+        from seal_tpu.random import PRNGType, UniformRandomGeneratorFactory as Factory
+        Parameters, Scheme, Modulus, Ev = JaxParameters, JaxScheme, JaxCoeffModulus, JaxEvaluator
+        context = lambda parms: JaxContext(parms, True, JaxSecurityLevel.NONE)
+    else:
+        Encoder, Encryptor, KeyGenerator, PRNGType, Factory = (P.CKKSEncoder, P.Encryptor, P.KeyGenerator,
+                                                               P.PRNGType, P.UniformRandomGeneratorFactory)
+        Parameters, Scheme, Modulus, Ev = P.EncryptionParameters, P.SchemeType, P.CoeffModulus, Evaluator
+        context = lambda parms: P.SealContext(parms, True, P.SecurityLevel.NONE, device="cpu")
+    n, bits = 1024, [60, 40, 40, 40, 60]
+    scale = 2.0 ** bits[1]
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("SEAL_TPU_DEVICE_SAMPLING", "SEAL_TPU_DEVICE_FFT", "SEAL_TPU_DEVICE_COMPOSE"):
+            mp.setenv(var, "0")
+        parms = Parameters(Scheme.CKKS)
+        parms.set_poly_modulus_degree(n)
+        parms.set_coeff_modulus(Modulus.create(n, bits))
+        parms.set_random_generator(Factory(PRNGType.BLAKE2XB, (1, 2, 3, 4, 5, 6, 7, 8)))
+        ctx = context(parms)
+        keygen = KeyGenerator(ctx)
+        rk = keygen.create_relin_keys()
+        enc, encoder = Encryptor(ctx, secret_key=keygen.secret_key), Encoder(ctx)
+        vals = np.linspace(0.0, 1.0, n // 2)
+        ct1 = enc.encrypt_symmetric(encoder.encode(vals, scale))
+        ct2 = enc.encrypt_symmetric(encoder.encode(vals[::-1].copy(), scale))
+    ev = Ev(ctx)
+    out = ev.rescale_to_next(ev.relinearize(ev.multiply(ct1, ct2), rk))
+    return {"ct1": ct1, "ct2": ct2, "relin keys": rk}, {"out": out}
+
+
 @pytest.fixture(scope="module")
 def evaluator_outputs():
-    """JAX Evaluator and the port's Evaluator on real N=1024 ciphertexts."""
-    from __graft_entry__ import _build
-
-    bits = [60, 40, 40, 40, 60]
-    jctx, _, args = _build(1024, bits)
-    scale = 2.0 ** bits[1]
-    jct1 = JaxCiphertext(data=args[0], parms_id=jctx.first_parms_id, is_ntt_form=True, scale=scale)
-    jct2 = JaxCiphertext(data=args[1], parms_id=jctx.first_parms_id, is_ntt_form=True, scale=scale)
-    jrk = JaxRelinKeys()
-    jrk.parms_id = jctx.key_parms_id
-    jrk.keys = [{"c0": args[2], "c1": args[3]}]
-    jev = JaxEvaluator(jctx)
-    jout = jev.rescale_to_next(jev.relinearize(jev.multiply(jct1, jct2), jrk))
-
-    pctx = _port_context(1024, bits)
-    pct1 = ciphertext_from_numpy(JU.to_np_u64(args[0]), jct1.parms_id, True, scale, "cpu")
-    pct2 = ciphertext_from_numpy(JU.to_np_u64(args[1]), jct2.parms_id, True, scale, "cpu")
-    prk = relin_keys_from_numpy([(JU.to_np_u64(args[2]), JU.to_np_u64(args[3]))], jrk.parms_id, "cpu")
-    pev = Evaluator(pctx)
-    pout = pev.rescale_to_next(pev.relinearize(pev.multiply(pct1, pct2), prk))
-    return jout, pout
+    """The port's Evaluator on its own N=1024 ciphertexts."""
+    return _evaluator_case("port")
 
 
-def test_evaluator_equals_jax_at_n1024(evaluator_outputs):
-    jout, pout = evaluator_outputs
-    data, parms_id, is_ntt_form, scale, correction_factor = ciphertext_to_numpy(pout)
-    np.testing.assert_array_equal(data, jout.to_np())
-    assert parms_id == jout.parms_id
-    assert is_ntt_form == jout.is_ntt_form
-    assert scale == jout.scale
-    assert correction_factor == jout.correction_factor
+def test_evaluator_equals_jax_at_n1024(evaluator_outputs, request):
+    inputs, outputs = evaluator_outputs
+    ANSWERS.check(request.node.name, inputs, outputs)
 
 
 def test_convert_round_trip():
@@ -144,26 +177,15 @@ def test_convert_round_trip():
 
 @pytest.fixture(scope="module")
 def large_golden_outputs():
-    """The JAX pipeline and the port's plain path (CPU) at N=65536."""
-    n, bits = golden.LARGE_N, list(golden.LARGE_BITS)
-    jp = JaxParameters(JaxScheme.CKKS)
-    jp.set_poly_modulus_degree(n)
-    jp.set_coeff_modulus(JaxCoeffModulus.create(n, bits))
-    jctx = JaxContext(jp, True, JaxSecurityLevel.NONE)
-    pctx = _port_context(n, bits)
-    d1, d2 = golden.request_inputs(pctx, golden.GOLDEN_REQUEST_SEED)
-    kc0, kc1 = golden.key_inputs(pctx, golden.GOLDEN_KEY_SEED)
-    args = (d1, d2, kc0, kc1)
-    jax_out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
-    port_out = u64_to_numpy(build_ckks_mult_relin_rescale(pctx)(*(u64_from_numpy(a, "cpu") for a in args)))
-    return jax_out, port_out
+    """The port's plain path (CPU) at N=65536, with its inputs."""
+    return _pipeline_case("port", golden.LARGE_N, list(golden.LARGE_BITS))
 
 
-def test_pipelines_give_large_golden_digest_at_n65536(large_golden_outputs):
-    jax_out, port_out = large_golden_outputs
-    assert jax_out.shape == (2, len(golden.LARGE_BITS) - 2, golden.LARGE_N)
-    assert golden.digest(jax_out) == golden.LARGE_DIGEST
-    np.testing.assert_array_equal(port_out, jax_out)
+def test_pipelines_give_large_golden_digest_at_n65536(large_golden_outputs, request):
+    inputs, outputs, _ = large_golden_outputs
+    ANSWERS.check(request.node.name, inputs, outputs)
+    assert outputs["out"].shape == (2, len(golden.LARGE_BITS) - 2, golden.LARGE_N)
+    assert golden.digest(outputs["out"]) == golden.LARGE_DIGEST
 
 
 def test_port_imports_neither_jax_nor_seal_tpu():
@@ -238,3 +260,16 @@ def test_jax_pipeline_gives_medium_golden_digest_at_n32768():
     args = _medium_args(pctx)
     jax_out = JU.to_np_u64(jax.jit(jax_pipeline(jctx))(*(JU.from_np_u64(a) for a in args)))
     assert golden.digest(jax_out) == golden.MEDIUM_DIGEST
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    yield ("test_port_pipeline_equals_jax_at_n8192", *_pipeline_case(side, golden.GOLDEN_N, list(golden.GOLDEN_BITS))[:2])
+    yield ("test_evaluator_equals_jax_at_n1024", *_evaluator_case(side))
+    yield ("test_pipelines_give_large_golden_digest_at_n65536",
+           *_pipeline_case(side, golden.LARGE_N, list(golden.LARGE_BITS))[:2])
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))

@@ -8,20 +8,21 @@
     lies on the context's device;
 (b) the slice as a whole at N=1024, for CKKS (multiply -> relinearize ->
     rescale_to_next), BFV (multiply -> relinearize) and BGV
-    (``golden.bgv_request``): the JAX package's client makes the request
-    bytes (parameters, keys, a seeded secret-key and a public-key
-    encryption), and the port's client, from the same seeded factory and
-    through the same Encryptor setters, makes the same bytes; the port
-    serves two requests on the CPU (loads, ``valcheck.is_valid_for``,
-    the evaluator, saves), and its reply bytes equal the JAX package's; the
-    JAX client decrypts the port's replies to the expected slots;
+    (``golden.bgv_request``): the port's client, from the JAX client's
+    seeded factory and through the same Encryptor setters, makes the JAX
+    client's request bytes (parameters, keys, a seeded secret-key and a
+    public-key encryption); the port serves two requests on the CPU
+    (loads, ``valcheck.is_valid_for``, the evaluator, saves), and its reply
+    bytes equal the JAX package's; the client decrypts the replies to the
+    expected slots, and the plaintexts equal the JAX client's;
     ``decrypt_batch`` over the replies and over the requests equals the JAX
     package's and mapped ``decrypt``;
 (c) ``Evaluator(ctx, throw_on_transparent=False)`` and the module flag, as
     in the JAX package, and the constructor's parameters.
 
-The JAX side samples on the host (``SEAL_TPU_DEVICE_SAMPLING=0``), the path
-the port implements.
+The JAX package's side of (b) and (c), on host sampling
+(``SEAL_TPU_DEVICE_SAMPLING=0``), is frozen in ``tests/data/jax_answers/``
+(``tests/jax_answers.py``); the test marked ``slow`` recomputes it.
 """
 
 import inspect
@@ -54,6 +55,8 @@ from seal_tpu_torch import golden
 from seal_tpu_torch import serialization as S
 from seal_tpu_torch import valcheck as V
 from seal_tpu_torch.parallel.batch import CiphertextBatch
+
+import jax_answers as JA
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "wire")
 FIXED_SEED = tuple(0x1111111111111111 * (i + 1) for i in range(8))
@@ -345,42 +348,110 @@ def _expected(scheme, client):
     return np.concatenate([np.roll(prod[:half], -1), np.roll(prod[half:], -1)])
 
 
+ANSWERS = JA.Answers(__file__)
+
+
+def _side(side, scheme):
+    """One package's client, request, replies and loaded request, each on
+    its own bytes; the JAX package on host sampling."""
+    with pytest.MonkeyPatch.context() as mp:
+        if side == "jax":
+            mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
+        client, request = _client_bytes(side, scheme)
+        replies, loaded = _serve(side, scheme, request)
+    return {"scheme": scheme, "side": side, "client": client, "request": request, "replies": replies,
+            "loaded": loaded}
+
+
 @pytest.fixture(scope="module", params=list(SLICE))
 def wire(request):
-    scheme = request.param
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAL_TPU_DEVICE_SAMPLING", "0")
-        jclient, jrequest = _client_bytes("jax", scheme)
-        jreplies, jloaded = _serve("jax", scheme, jrequest)
-    pclient, prequest = _client_bytes("port", scheme)
-    preplies, ploaded = _serve("port", scheme, jrequest)
-    return {"scheme": scheme, "jclient": jclient, "pclient": pclient, "jrequest": jrequest, "prequest": prequest,
-            "jreplies": jreplies, "preplies": preplies, "jloaded": jloaded, "ploaded": ploaded}
+    """The port's side: its client's request, served by the port."""
+    return _side("port", request.param)
 
 
-def test_request_bytes_equal(wire):
-    """The port's client (keygen, the Encryptor setters, encoding and both
-    encryptions) makes the JAX client's bytes."""
-    assert wire["prequest"].keys() == wire["jrequest"].keys()
-    for name in wire["jrequest"]:
-        assert wire["prequest"][name] == wire["jrequest"][name], name
+def _plain(p):
+    return {"values": _plain_values(p), "parms_id": np.array(p.parms_id, dtype=np.uint64), "scale": p.scale}
 
 
-def test_reply_bytes_equal(wire):
-    assert wire["preplies"] == wire["jreplies"]
+def _request_case(w):
+    return {"seed": np.array(SLICE_SEED, dtype=np.uint64)}, w["request"]
 
 
-def test_jax_client_decrypts_port_reply(wire):
-    scheme, client = wire["scheme"], wire["jclient"]
-    dec = JaxDecryptor(client["ctx"], client["sk"])
-    want = _expected(scheme, client)
-    for reply in wire["preplies"]:
-        ct, _ = JS.ciphertext_load(reply, client["ctx"])
-        got = client["enc"].decode(dec.decrypt(ct))
-        if scheme == "ckks":
+def _reply_case(w):
+    return w["request"], {f"reply {i}": r for i, r in enumerate(w["replies"])}
+
+
+def _decrypt_case(w):
+    """The client decrypts each reply (the integers before decoding)."""
+    client = w["client"]
+    jax = w["side"] == "jax"
+    dec = (JaxDecryptor if jax else P.Decryptor)(client["ctx"], client["sk"])
+    outs = {}
+    for i, reply in enumerate(w["replies"]):
+        ct, _ = (JS if jax else S).ciphertext_load(reply, client["ctx"])
+        plain = dec.decrypt(ct)
+        got = client["enc"].decode(plain)
+        want = _expected(w["scheme"], client)
+        if w["scheme"] == "ckks":
             assert np.max(np.abs(got.real - want)) < 1e-5
         else:
             np.testing.assert_array_equal(got, want)
+        outs.update({f"reply {i} {k}": v for k, v in _plain(plain).items()})
+    return _reply_case(w)[1], outs
+
+
+def _decrypt_batch(w, what):
+    """The ciphertexts, their decryptor and its ``decrypt_batch`` of them."""
+    client = w["client"]
+    jax = w["side"] == "jax"
+    if what == "replies":
+        cts = [(JS if jax else S).ciphertext_load(r, client["ctx"])[0] for r in w["replies"]]
+    else:
+        cts = list(w["loaded"])
+    dec = (JaxDecryptor if jax else P.Decryptor)(client["ctx"], client["sk"])
+    return cts, dec, dec.decrypt_batch((JaxBatch if jax else CiphertextBatch).from_ciphertexts(cts))
+
+
+def _decrypt_batch_case(w, what, decrypted=None):
+    cts, _, got = decrypted or _decrypt_batch(w, what)
+    assert len(got) == 2
+    outs = {f"{i} {k}": v for i, g in enumerate(got) for k, v in _plain(g).items()}
+    return {f"ciphertext {i}": c for i, c in enumerate(cts)}, outs
+
+
+def _transparent_case(w, switch):
+    """sub(ct, ct) is transparent: with the check off it is returned."""
+    jax = w["side"] == "jax"
+    module, Ev = (jax_evaluator, JaxEvaluator) if jax else (port_evaluator, P.Evaluator)
+    a, ctx = w["loaded"][0], w["client"]["ctx"]
+    with pytest.MonkeyPatch.context() as mp:
+        if switch == "argument":
+            ev = Ev(ctx, throw_on_transparent=False)
+        else:
+            mp.setattr(module, "THROW_ON_TRANSPARENT", False)
+            ev = Ev(ctx)
+        got = ev.sub(a, a)
+    assert got.is_transparent()
+    return {"a": a}, {"out": got}
+
+
+def test_request_bytes_equal(wire, request):
+    """The port's client (keygen, the Encryptor setters, encoding and both
+    encryptions) makes the JAX client's bytes."""
+    ANSWERS.check(request.node.name, *_request_case(wire))
+
+
+def test_reply_bytes_equal(wire, request):
+    ANSWERS.check(request.node.name, *_reply_case(wire))
+
+
+def test_jax_client_decrypts_port_reply(wire, request):
+    """The client decrypts the replies to the expected slots, and its
+    plaintexts equal the JAX client's.  Here the port's client decrypts and
+    the JAX client's plaintexts are the frozen record; the ``slow`` twin
+    has the JAX client decrypt the JAX replies.  The id is kept from when
+    this test ran the JAX client on the port's replies."""
+    ANSWERS.check(request.node.name, *_decrypt_case(wire))
 
 
 def _plain_values(p):
@@ -390,32 +461,25 @@ def _plain_values(p):
 
 
 @pytest.mark.parametrize("what", ["replies", "requests"])
-def test_decrypt_batch(wire, what):
+def test_decrypt_batch(wire, what, request):
     """The port's decrypt_batch equals the JAX package's and mapped decrypt,
     over the two replies (BGV: a correction factor other than 1 after the
     modulus switch) and over the two loaded requests."""
-    jclient, pclient = wire["jclient"], wire["pclient"]
-    if what == "replies":
-        pcts = [S.ciphertext_load(r, pclient["ctx"])[0] for r in wire["preplies"]]
-        jcts = [JS.ciphertext_load(r, jclient["ctx"])[0] for r in wire["preplies"]]
-    else:
-        pcts, jcts = wire["ploaded"], wire["jloaded"]
-    pdec = P.Decryptor(pclient["ctx"], pclient["sk"])
-    got = pdec.decrypt_batch(CiphertextBatch.from_ciphertexts(pcts))
+    decrypted = _decrypt_batch(wire, what)
+    ANSWERS.check(request.node.name, *_decrypt_batch_case(wire, what, decrypted))
+    pcts, pdec, got = decrypted
     mapped = [pdec.decrypt(c) for c in pcts]
-    want = JaxDecryptor(jclient["ctx"], jclient["sk"]).decrypt_batch(JaxBatch.from_ciphertexts(jcts))
-    assert len(got) == len(mapped) == len(want) == 2
-    for g, m, w in zip(got, mapped, want):
-        assert g.parms_id == m.parms_id == tuple(w.parms_id) and g.scale == m.scale == w.scale
+    assert len(got) == len(mapped) == 2
+    for g, m in zip(got, mapped):
+        assert g.parms_id == m.parms_id and g.scale == m.scale
         np.testing.assert_array_equal(_plain_values(g), _plain_values(m))
-        np.testing.assert_array_equal(_plain_values(g), _plain_values(w))
     if wire["scheme"] == "bgv" and what == "replies":
         assert pcts[0].correction_factor != 1
 
 
 def test_decrypt_batch_rejections(wire):
-    pclient = wire["pclient"]
-    a, b = wire["ploaded"]
+    pclient = wire["client"]
+    a, b = wire["loaded"]
     dec = P.Decryptor(pclient["ctx"], pclient["sk"])
     batch = CiphertextBatch.from_ciphertexts([a, b])
     batch.is_ntt_form = not batch.is_ntt_form
@@ -437,22 +501,28 @@ def test_evaluator_constructor_takes_the_jax_parameters():
 
 
 @pytest.mark.parametrize("switch", ["argument", "module flag"])
-def test_transparent_results_without_the_check(wire, switch):
+def test_transparent_results_without_the_check(wire, switch, request):
     """sub(ct, ct) is transparent: the default evaluator raises, one with the
     check off returns it, as in the JAX package."""
-    a = wire["ploaded"][0]
-    ctx = wire["pclient"]["ctx"]
-    ja = wire["jloaded"][0]
-    jctx = wire["jclient"]["ctx"]
+    a = wire["loaded"][0]
     with pytest.raises(ValueError, match="transparent"):
-        P.Evaluator(ctx).sub(a, a)
-    with pytest.MonkeyPatch.context() as mp:
-        if switch == "argument":
-            port_ev, jax_ev = P.Evaluator(ctx, throw_on_transparent=False), JaxEvaluator(jctx, False)
-        else:
-            mp.setattr(port_evaluator, "THROW_ON_TRANSPARENT", False)
-            mp.setattr(jax_evaluator, "THROW_ON_TRANSPARENT", False)
-            port_ev, jax_ev = P.Evaluator(ctx), JaxEvaluator(jctx)
-        got, want = port_ev.sub(a, a), jax_ev.sub(ja, ja)
-    assert got.is_transparent() and want.is_transparent()
-    np.testing.assert_array_equal(got.to_np(), want.to_np())
+        P.Evaluator(wire["client"]["ctx"]).sub(a, a)
+    ANSWERS.check(request.node.name, *_transparent_case(wire, switch))
+
+
+def answers(side):
+    """(case id, inputs, outputs) of every case that reads frozen answers."""
+    for scheme in SLICE:
+        w = _side(side, scheme)
+        yield (f"test_request_bytes_equal[{scheme}]", *_request_case(w))
+        yield (f"test_reply_bytes_equal[{scheme}]", *_reply_case(w))
+        yield (f"test_jax_client_decrypts_port_reply[{scheme}]", *_decrypt_case(w))
+        for what in ("replies", "requests"):
+            yield (f"test_decrypt_batch[{scheme}-{what}]", *_decrypt_batch_case(w, what))
+        for switch in ("argument", "module flag"):
+            yield (f"test_transparent_results_without_the_check[{scheme}-{switch}]", *_transparent_case(w, switch))
+
+
+@pytest.mark.slow
+def test_frozen_answers_equal_the_jax_package():
+    JA.check_twin(__file__, answers("jax"), answers("port"))
