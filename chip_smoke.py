@@ -18,6 +18,11 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
    output row) against its plain version: D=4 with and without the
    diagonal, the next level's key trim, and D=66 at N=1024 (the Barrett
    guard every 64 summands), timed the same ways;
+3b. kernel E (``ops/u64.py``'s eight modular functions, one launch a call)
+   against the plain bodies inside ``plain_on_card()``, bit-exact on
+   reduced and full-range words, at the benchmark cells' shapes (CKKS
+   N=32768 (8, 2, 15, n), BFV N=8192 (32, 2, k, n) over q and over Bsk),
+   timed the same ways, with its byte bound;
 4. the slice: Evaluator multiply -> relinearize -> rescale_to_next for 8
    requests at CKKS N=8192, bits [60, 40, 40, 40, 60], equal to the plain
    path on the card, the first request equal to the golden digest of the
@@ -84,9 +89,10 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        ``BatchEvaluator`` batch, the batch equal to the sequential outputs;
        2 launches of kernel B per request and per batch (the rotation's key
        switch and the relinearization's), 8 of kernel A (3 per key switch,
-       2 for the rescale), none of the stage kernel; ms per ciphertext
-       sequentially and batched, launches per ciphertext, device-busy share
-       and a profiler split (kernel A, kernel B, the gathers, the rest);
+       2 for the rescale), 14 of kernel E, none of the stage kernel; ms per
+       ciphertext sequentially and batched, launches per ciphertext,
+       device-busy share and a profiler split (kernel A, kernel B, kernel E,
+       the gathers, the rest);
    (b) real keys from a seeded BLAKE2XB factory: the secret key,
        ``create_relin_keys()`` and ``create_galois_keys_from_steps([1])``
        equal to the same calls on the plain path on the card;
@@ -109,10 +115,11 @@ the repository's ``seal_tpu_torch`` package; it imports nothing of JAX or
        card and to ``golden.BFV_DIGEST`` / ``BFV_MEDIUM_DIGEST``; 8 requests
        at N=8192 (4 at N=32768) of Evaluator multiply -> relinearize
        sequentially and as one ``BatchEvaluator`` batch, the batch equal to
-       the sequential outputs; kernel A 4 launches and kernel B 1 per request
-       and per batch, no stage-kernel launch; ms per request, launches per
-       request, device-busy share and a profiler split (kernel A, kernel B,
-       the BEHZ base conversions timed alone, the rest);
+       the sequential outputs; kernel A 4 launches, kernel B 1 and kernel E
+       23 per request and per batch, no stage-kernel launch; ms per request,
+       launches per request, device-busy share and a profiler split (kernel
+       A, kernel B, kernel E, the BEHZ base conversions timed alone, the
+       rest);
    (d) real keys at N=8192 from a seeded BLAKE2XB factory (secret, public,
        relinearization, and Galois keys for rotate_rows(1) and
        rotate_columns) equal to the plain path on the card; two BatchEncoder
@@ -235,6 +242,7 @@ CUDA device it exits with code 2 and prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -411,6 +419,17 @@ def profile_run(fn):
     if not events:
         return wall_ms, None, None
     return wall_ms, len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def on_plain(fn):
+    """fn() with the plain versions on the card (inside ``plain_on_card()``):
+    every reference and every plain time, so that no kernel, kernel E's
+    modular arithmetic included, computes the side a kernel is held to."""
+    def run():
+        from seal_tpu_torch.ops.u64 import plain_on_card
+        with plain_on_card():
+            return fn()
+    return run
 
 
 # launches of kernels C and D (blake2xb, sample_uniform, sample_cbd) in each
@@ -743,13 +762,13 @@ def medium_phase(gen):
     for label, c_, n_, k_, t_, need, diag in cases:
         fn = lambda: kernel_b(c_, n_, k_, t_, need)
         got = fn()
-        want = SK.switch_key_contract_plain(c_, n_, k_, t_, need)
+        want = on_plain(lambda: SK.switch_key_contract_plain(c_, n_, k_, t_, need))()
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         check(err == 0, f"kernel B disagrees with its plain version at N={n}, {label}: max abs err {err}")
         max_err = max(max_err, err)
         ms, events_ms = kernel_ms(fn, 20)
-        plain_ms = cuda_ms(lambda: SK.switch_key_contract_plain(c_, n_, k_, t_, need), 2, warmup=1)
+        plain_ms = cuda_ms(on_plain(lambda: SK.switch_key_contract_plain(c_, n_, k_, t_, need)), 2, warmup=1)
         B = c_.shape[0] if c_.dim() == 3 else 1
         nbytes, ops = switch_key_work(c_.shape[-2], k_.shape[1], t_.q.shape[0], cd.log_n, diag, B)
         b, by = bound_ms(nbytes, ops)
@@ -808,6 +827,7 @@ def linear_phase():
     from seal_tpu_torch.modulus import CoeffModulus, SecurityLevel
     from seal_tpu_torch.ops import ntt as NTT
     from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_modarith import modarith_cuda
     from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
     from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda
     from seal_tpu_torch.params import EncryptionParameters, SchemeType
@@ -844,16 +864,17 @@ def linear_phase():
     def serve_batch():
         return step(bev, CiphertextBatch.from_ciphertexts(cts), pt, gk, rk)
 
-    groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel", "gathers (index_select)": "indexSelect"}
+    groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel", "kernel E": "modarith_kernel",
+              "gathers (index_select)": "indexSelect"}
 
     def counted(fn):
-        """fn() with the three counters set to 0 just before and read just after."""
+        """fn() with the four counters set to 0 just before and read just after."""
         torch.cuda.synchronize()
-        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = modarith_cuda.launches = 0
         out = fn()
         torch.cuda.synchronize()
         return out, {"ntt": ntt_cuda.launches, "switch_key": switch_key_contract_cuda.launches,
-                     "four_step_stage": stage_cuda.launches}
+                     "four_step_stage": stage_cuda.launches, "modarith": modarith_cuda.launches}
 
     def measure(label, fn):
         """Warm-up, one counted run, 3 timed runs, one profiled run; ms per
@@ -883,7 +904,8 @@ def linear_phase():
         else:
             busy, prof_line = None, "the profiler recorded no device time: not measured"
         print(f"[linear] {label}: launches for {requests} ciphertexts: kernel A {launches['ntt']}, kernel B "
-              f"{launches['switch_key']}, stage kernel {launches['four_step_stage']}; ms per ciphertext over 3 runs "
+              f"{launches['switch_key']}, kernel E {launches['modarith']}, stage kernel {launches['four_step_stage']}; "
+              f"ms per ciphertext over 3 runs "
               f"{', '.join(f'{t:.3f}' for t in times)} (median {sorted(times)[1]:.3f}); {prof_line}")
         return outs, launches, sorted(times)[1], busy
 
@@ -899,22 +921,27 @@ def linear_phase():
     # per request: kernel B for the rotation's and the relinearization's key
     # switch; kernel A three times per key switch (the inverse NTT of the
     # target, the inverse NTT mod the special prime, the tail's NTT) and twice
-    # for the rescale (the inverse NTT mod q_last, the NTT of the rest)
-    check(one_launches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0},
-          f"linear step: one request launched {one_launches}; expected 8 of kernel A, 2 of kernel B, 0 stage")
+    # for the rescale (the inverse NTT mod q_last, the NTT of the rest);
+    # kernel E for each modular function of ops/u64.py the step calls: 2
+    # mul_mod, 3 mul_mod_shoup, 5 barrett_reduce_64 and 4 add_mod
+    check(one_launches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0, "modarith": 14},
+          f"linear step: one request launched {one_launches}; expected 8 of kernel A, 2 of kernel B, 0 stage, "
+          f"14 of kernel E")
     outs, launches, seq_ms, seq_busy = measure("sequential", serve)
-    check(launches == {"ntt": 8 * requests, "switch_key": 2 * requests, "four_step_stage": 0},
+    check(launches == {"ntt": 8 * requests, "switch_key": 2 * requests, "four_step_stage": 0,
+                       "modarith": 14 * requests},
           f"linear step: {requests} sequential requests launched {launches}")
     check(torch.equal(outs[0].data, one.data), "linear step: sequential request 0 differs from the single run")
     batch, blaunches, batch_ms, batch_busy = measure(f"one batch of {requests}", serve_batch)
-    check(blaunches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0},
-          f"linear step: the batch launched {blaunches}; expected 8 of kernel A, 2 of kernel B, 0 stage")
+    check(blaunches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0, "modarith": 14},
+          f"linear step: the batch launched {blaunches}; expected 8 of kernel A, 2 of kernel B, 0 stage, "
+          f"14 of kernel E")
     for r in range(requests):
         check(torch.equal(batch.data[r], outs[r].data), f"linear step: batched request {r} differs from the sequential one")
     print(f"[linear] (a) {requests} requests of multiply_plain -> rotate_vector(1) -> multiply -> relinearize -> "
           f"rescale_to_next: request 0 equal to the plain path on the card and to the JAX package's N={n} digest; the "
           f"batch equal to the sequential outputs; kernel B 2 launches per request and 2 per batch, kernel A 8 per "
-          f"request and 8 per batch, no stage-kernel launch; batched: {batch_ms:.3f} ms per ciphertext (the port's "
+          f"request and 8 per batch, kernel E 14 and 14, no stage-kernel launch; batched: {batch_ms:.3f} ms per ciphertext (the port's "
           f"counterpart of ckks_n32768_batched_linear_layer_us_per_ct: {batch_ms * 1e3:.1f} us per ciphertext), "
           f"sequential {seq_ms:.3f} ms per ciphertext; {time.perf_counter() - t_a:.1f} s")
     del outs, batch, ref0
@@ -927,11 +954,11 @@ def linear_phase():
     with NTT.plain_on_card():
         rot_ref = ev.rotate_vector(ev.mod_switch_to_next(cts[0]), 1, gk)
     check(torch.equal(rot.data, rot_ref.data), "rotation after mod_switch_to_next differs from the plain path")
-    check(rot_launches == {"ntt": 3, "switch_key": 1, "four_step_stage": 0},
+    check(rot_launches == {"ntt": 3, "switch_key": 1, "four_step_stage": 0, "modarith": 4},
           f"rotation after mod_switch_to_next launched {rot_launches}")
     print(f"[linear] (c) mod_switch_to_next then rotate_vector(1) (D={len(low.data[0])}, the key's rows trimmed from "
           f"{gk.key(golden.LINEAR_GALOIS_ELT)['c0'].shape[0]}): equal to the plain path on the card; kernel B 1 launch, "
-          f"kernel A 3; {time.perf_counter() - t_c:.1f} s")
+          f"kernel A 3, kernel E 4; {time.perf_counter() - t_c:.1f} s")
     del ev, bev, gk, rk, cts, pt, low, rot, rot_ref
     torch.cuda.empty_cache()
 
@@ -975,7 +1002,8 @@ def linear_phase():
     with NTT.plain_on_card():
         rref = step(rbev, rbatch, pv, rgk, rrk)
     check(torch.equal(rout.data, rref.data), "real keys: the batch differs from the plain path on the card")
-    check(rlaunches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0}, f"real keys: the batch launched {rlaunches}")
+    check(rlaunches == {"ntt": 8, "switch_key": 2, "four_step_stage": 0, "modarith": 14},
+          f"real keys: the batch launched {rlaunches}")
     dec = Decryptor(rctx, sk)
     model = np.roll(v * v, -1) * v
     worst = 0.0
@@ -995,7 +1023,10 @@ def linear_phase():
     return {"launches_per_request": one_launches["switch_key"], "launches_per_batch": blaunches["switch_key"],
             "ms_per_ct_sequential": seq_ms, "ms_per_ct_batched": batch_ms,
             "device_busy_ms_per_ct_batched": None if batch_busy is None else batch_busy / requests,
-            "ntt_launches_per_request": one_launches["ntt"]}
+            "ntt_launches_per_request": one_launches["ntt"],
+            "modarith_launches_per_request": one_launches["modarith"],
+            "modarith_launches_per_batch": blaunches["modarith"]}
+
 
 def bfv_phase(gen):
     """Phase 11: BFV on the card (``golden.bfv_context``: bfv_default(n) at
@@ -1012,6 +1043,7 @@ def bfv_phase(gen):
     from seal_tpu_torch.ops import ntt as NTT
     from seal_tpu_torch.ops import rns as R
     from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+    from seal_tpu_torch.ops.cuda_modarith import modarith_cuda
     from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
     from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
     from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
@@ -1021,14 +1053,15 @@ def bfv_phase(gen):
     from seal_tpu_torch.pipeline import build_bfv_mult_relin
 
     def counted(fn):
-        """fn() with the three counters set to 0 just before and read just after."""
+        """fn() with the four counters set to 0 just before and read just
+        after: (A, B, stage, E)."""
         torch.cuda.synchronize()
-        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = 0
+        ntt_cuda.launches = switch_key_contract_cuda.launches = stage_cuda.launches = modarith_cuda.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches)
+        return out, (ntt_cuda.launches, switch_key_contract_cuda.launches, stage_cuda.launches, modarith_cuda.launches)
 
-    result = {"ntt": {}, "switch_key": {}}
+    result = {"ntt": {}, "switch_key": {}, "modarith": {}}
     batch_outs = {}             # n -> phase 11's batch outputs, for phase 15
     max_err = {"ntt": 0, "switch_key": 0}
     for n, requests in ((golden.BFV_N, 8), (golden.BFV_MEDIUM_N, 4)):
@@ -1058,7 +1091,7 @@ def bfv_phase(gen):
         per_request = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
         for i, (label, t, shape, inverse) in enumerate(cases):
             x = lazy_input(t, shape, 2 if inverse else 4, gen)
-            plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
+            plain_fn = on_plain((lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t)))
             got = ntt_cuda(x, t, inverse)
             want = plain_fn()
             torch.cuda.synchronize()
@@ -1085,12 +1118,13 @@ def bfv_phase(gen):
             t_c = lazy_input(cd.limb_tables(), shape, 1, gen)
             fn = lambda: switch_key_contract_cuda(t_c, None, key, sel, plan.need_reduce)
             got = fn()
-            want = switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce)
+            want = on_plain(lambda: switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce))()
             torch.cuda.synchronize()
             err = int((got - want).abs().max())
             check(err == 0, f"kernel B disagrees with its plain version at N={n}, {label}, no diagonal: {err}")
             ms, events_ms = kernel_ms(fn, 20)
-            plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce), 2, warmup=1)
+            plain_ms = cuda_ms(on_plain(lambda: switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce)), 2,
+                               warmup=1)
             B = t_c.shape[0] if t_c.dim() == 3 else 1
             nbytes, ops = switch_key_work(D, D, Rn, cd.log_n, False, B)
             b, by = bound_ms(nbytes, ops)
@@ -1119,8 +1153,12 @@ def bfv_phase(gen):
         check(dig == want_dig, f"{tag} BFV digest mismatch: {dig}")
         # per request: kernel A for the BEHZ forward and t-scaled inverse
         # transforms (both bases in one launch each) and the key-switch tail's
-        # two inverse transforms; kernel B once; no stage kernel
-        check(one_launches == (4, 1, 0), f"{tag} one request launched (A, B, stage) {one_launches}; expected (4, 1, 0)")
+        # two inverse transforms; kernel B once; no stage kernel; kernel E for
+        # each modular function of ops/u64.py the request calls (11
+        # mul_mod_shoup, 5 add_mod, 3 barrett_reduce_128, 2 barrett_reduce_64,
+        # 1 mul_mod, 1 neg_mod), whatever the number of limbs
+        check(one_launches == (4, 1, 0, 23),
+              f"{tag} one request launched (A, B, stage, E) {one_launches}; expected (4, 1, 0, 23)")
 
         def serve():
             return [ev.relinearize(ev.multiply(a, b), rk) for a, b in cts]
@@ -1138,14 +1176,15 @@ def bfv_phase(gen):
             tool = cd.rns_tool
             return lambda: (R.sm_mrq(R.fastbconv_m_tilde(x, tool), tool), R.fastbconv_sk(R.fast_floor(joined, tool), tool))
 
-        groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel"}
+        groups = {"kernel A": "ntt_", "kernel B": "switch_key_kernel", "kernel E": "modarith_kernel"}
         timings = {}
-        for label, run, count, expect, lead in (("sequential", serve, requests, (4 * requests, requests, 0), ()),
-                                                (f"one batch of {requests}", serve_batch, requests, (4, 1, 0),
+        for label, run, count, expect, lead in (("sequential", serve, requests, (4 * requests, requests, 0, 23 * requests),
+                                                 ()),
+                                                (f"one batch of {requests}", serve_batch, requests, (4, 1, 0, 23),
                                                  (requests,))):
             run()
             outs, launches = counted(run)
-            check(launches == expect, f"{tag} {label}: launched (A, B, stage) {launches}; expected {expect}")
+            check(launches == expect, f"{tag} {label}: launched (A, B, stage, E) {launches}; expected {expect}")
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -1174,8 +1213,8 @@ def bfv_phase(gen):
                 busy, prof_line = None, "the profiler recorded no device time: not measured"
             median = sorted(times)[1]
             print(f"{tag} {label}: launches for {count} requests: kernel A {launches[0]}, kernel B {launches[1]}, "
-                  f"stage kernel {launches[2]}; ms per request over 3 runs {', '.join(f'{t:.3f}' for t in times)} "
-                  f"(median {median:.3f}); {prof_line}")
+                  f"stage kernel {launches[2]}, kernel E {launches[3]}; ms per request over 3 runs "
+                  f"{', '.join(f'{t:.3f}' for t in times)} (median {median:.3f}); {prof_line}")
             timings[label] = {"outs": outs, "launches": launches, "ms_per_request": median,
                               "device_busy_ms_per_request": None if busy is None else busy / count}
         seq = timings["sequential"]
@@ -1186,11 +1225,12 @@ def bfv_phase(gen):
         check(torch.equal(seq["outs"][0].data, one), f"{tag} the Evaluator's request 0 differs from the pipeline's")
         print(f"{tag} {requests} requests of multiply -> relinearize: request 0 equal to the plain path on the card "
               f"and to the JAX package's digest; the batch equal to the sequential outputs; kernel A 4 launches per "
-              f"request and 4 per batch, kernel B 1 and 1, no stage-kernel launch; "
+              f"request and 4 per batch, kernel B 1 and 1, kernel E 23 and 23, no stage-kernel launch; "
               f"{time.perf_counter() - t_n:.1f} s")
         name = f"n{n}"
         result["ntt"][name] = dict(a_entry, launches_per_request=one_launches[0],
                                    launches_per_batch=batch["launches"][0])
+        result["modarith"][name] = {"launches_per_request": one_launches[3], "launches_per_batch": batch["launches"][3]}
         result["switch_key"][name] = dict(b_entry, launches_per_request=one_launches[1],
                                           launches_per_batch=batch["launches"][1],
                                           ms_per_request_sequential=seq["ms_per_request"],
@@ -1244,8 +1284,9 @@ def bfv_phase(gen):
         ref = chain()
     check(torch.equal(out.data, ref.data), "real keys: the chain differs from the plain path on the card")
     # kernel B for the relinearization and the two rotations; kernel A twice
-    # for the multiply and twice in each key switch's tail
-    check(launches == (8, 3, 0), f"real keys: the chain launched (A, B, stage) {launches}; expected (8, 3, 0)")
+    # for the multiply and twice in each key switch's tail; kernel E 38 times
+    check(launches == (8, 3, 0, 38),
+          f"real keys: the chain launched (A, B, stage, E) {launches}; expected (8, 3, 0, 38)")
     budget_after = dec.invariant_noise_budget(out)
     check(budget_after > 0, f"real keys: the noise budget is spent ({budget_after} bits)")
     prod = (va.astype(object) * vb.astype(object) % tv).astype(np.uint64)
@@ -1258,7 +1299,8 @@ def bfv_phase(gen):
     print(f"[bfv real keys] N={n}, t={tv}: keygen (seeded BLAKE2XB; secret, public, relinearization, and Galois keys "
           f"for rotate_rows(1) and rotate_columns) equal to the plain path on the card; two BatchEncoder vectors "
           f"encrypted with the public key; multiply -> relinearize -> rotate_rows(1) -> rotate_columns -> "
-          f"mod_switch_to_next (kernel A {launches[0]}, kernel B {launches[1]}) equal to the plain path, decrypted and "
+          f"mod_switch_to_next (kernel A {launches[0]}, kernel B {launches[1]}, kernel E {launches[3]}) equal to the "
+          f"plain path, decrypted and "
           f"decoded equal to numpy's slot-wise product mod t with rows rotated and columns swapped; invariant noise "
           f"budget {budget_before} bits before, {budget_after} after; {time.perf_counter() - t_d:.1f} s")
     return result, batch_outs
@@ -1320,7 +1362,7 @@ def bgv_phase(gen):
         per_request = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
         for label, t, shape, inverse, calls in cases:
             x = lazy_input(t, shape, 2 if inverse else 4, gen)
-            plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
+            plain_fn = on_plain((lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t)))
             got = ntt_cuda(x, t, inverse)
             want = plain_fn()
             torch.cuda.synchronize()
@@ -1351,12 +1393,12 @@ def bgv_phase(gen):
             t_c = ntt_inverse(t_n_form, first_t)
             fn = lambda: switch_key_contract_cuda(t_c, t_n_form, key, sel, plan.need_reduce)
             got = fn()
-            want = switch_key_contract_plain(t_c, t_n_form, key, sel, plan.need_reduce)
+            want = on_plain(lambda: switch_key_contract_plain(t_c, t_n_form, key, sel, plan.need_reduce))()
             torch.cuda.synchronize()
             err = int((got - want).abs().max())
             check(err == 0, f"kernel B disagrees with its plain version at N={n}, {label}, diagonal: {err}")
             ms, events_ms = kernel_ms(fn, 20)
-            plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n_form, key, sel, plan.need_reduce), 2,
+            plain_ms = cuda_ms(on_plain(lambda: switch_key_contract_plain(t_c, t_n_form, key, sel, plan.need_reduce)), 2,
                                warmup=1)
             B = t_c.shape[0] if t_c.dim() == 3 else 1
             nbytes, ops = switch_key_work(D, D, Rn, cd.log_n, True, B)
@@ -2104,13 +2146,15 @@ def sampling_phase(gen, device=None, sizes=(8192, 32768, 65536)):
         vals, counts = uniform_bulk_cuda(words, n, q, mm, rhi)
         noise = cbd_lifted_cuda(boot, n, q, 64)
         torch.cuda.synchronize()
-        want_vals, want_counts = B.uniform_bulk_plain(words, n, moduli)
+        want_vals, want_counts = on_plain(lambda: B.uniform_bulk_plain(words, n, moduli))()
         for name, label, got, want in (
-                ("blake2xb", "kernel C, the noise streams", boot, B.expand_stream_words_plain(seeds, nw_noise)),
-                ("blake2xb", "kernel C, the uniform streams", words, B.expand_stream_words_plain(public, nw_uniform)),
+                ("blake2xb", "kernel C, the noise streams", boot,
+                 on_plain(lambda: B.expand_stream_words_plain(seeds, nw_noise))()),
+                ("blake2xb", "kernel C, the uniform streams", words,
+                 on_plain(lambda: B.expand_stream_words_plain(public, nw_uniform))()),
                 ("sample_uniform", "kernel D, the uniform values", vals, want_vals),
                 ("sample_uniform", "kernel D, the rejection counts", counts, want_counts),
-                ("sample_cbd", "kernel D, the CBD noise", noise, B.cbd_lifted_plain(boot, n, moduli, 64))):
+                ("sample_cbd", "kernel D, the CBD noise", noise, on_plain(lambda: B.cbd_lifted_plain(boot, n, moduli, 64))())):
             err = u64_max_abs_err(got, want)
             check(err == 0 and torch.equal(got, want), f"N={n}: {label} differ from the plain version: max abs "
                                                        f"err {err}")
@@ -2122,13 +2166,14 @@ def sampling_phase(gen, device=None, sizes=(8192, 32768, 65536)):
                                                                f"the host BLAKE2xb stream")
         calls = {
             "blake2xb": [(lambda: expand_stream_words_cuda(seeds, nw_noise),
-                          lambda: B.expand_stream_words_plain(seeds, nw_noise), blake2xb_work(D, nw_noise)),
+                          on_plain(lambda: B.expand_stream_words_plain(seeds, nw_noise)), blake2xb_work(D, nw_noise)),
                          (lambda: expand_stream_words_cuda(public, nw_uniform),
-                          lambda: B.expand_stream_words_plain(public, nw_uniform), blake2xb_work(D, nw_uniform))],
+                          on_plain(lambda: B.expand_stream_words_plain(public, nw_uniform)),
+                          blake2xb_work(D, nw_uniform))],
             "sample_uniform": [(lambda: uniform_bulk_cuda(words, n, q, mm, rhi),
-                                lambda: B.uniform_bulk_plain(words, n, moduli), uniform_work(D, k, n))],
+                                on_plain(lambda: B.uniform_bulk_plain(words, n, moduli)), uniform_work(D, k, n))],
             "sample_cbd": [(lambda: cbd_lifted_cuda(boot, n, q, 64),
-                            lambda: B.cbd_lifted_plain(boot, n, moduli, 64), cbd_work(D, k, n))],
+                            on_plain(lambda: B.cbd_lifted_plain(boot, n, moduli, 64)), cbd_work(D, k, n))],
         }
         for name, fns in calls.items():
             tot = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
@@ -2491,6 +2536,92 @@ def tooling_mesh_phase(card, gen, card_line, ckks, bfv_outs, bgv_outs, sampling)
     return entries, cross
 
 
+# kernel E's functions (ops/u64.py) and, per element, the u64 multiplies
+# (low or high half) and the adds, subtracts and compare-and-selects of each
+MODARITH_WORK = {"add_mod": (0, 2), "sub_mod": (0, 2), "neg_mod": (0, 2), "barrett_reduce_64": (2, 2),
+                 "barrett_reduce_128": (5, 8), "mul_mod": (7, 8), "mul_mod_shoup": (3, 2),
+                 "mul_mod_shoup_lazy": (3, 1)}
+
+
+def modarith_phase(gen, device="cuda"):
+    """Phase 3b: kernel E (``csrc/modarith.cu``) through ``ops/u64.py``'s
+    dispatch, each of its eight functions at the benchmark cells' shapes:
+    CKKS N=32768 (8, 2, 15, n) over golden.medium_context's first level,
+    BFV N=8192 (32, 2, k, n) over the q and the Bsk limbs of
+    golden.bfv_context(8192), per-limb constants (k, 1).  Each call one
+    launch, bit for bit the plain body inside ``plain_on_card()``, on the
+    main path's reduced words and on full-range 64-bit words; its profiler
+    device time, events time, the plain body's time by events, and the
+    bound (every operand read once and the output written once).  Returns
+    kernel E's entry for the kernels' JSON line.  ``device``: the card,
+    or the CPU to rehearse the phase with a counting stand-in for
+    ``modarith_cuda``."""
+    from seal_tpu_torch import golden
+    from seal_tpu_torch.ntt_tables import u64_tensor
+    from seal_tpu_torch.ops import u64 as U
+    from seal_tpu_torch.ops.cuda_modarith import modarith_cuda
+    from seal_tpu_torch.ops.rns import slice_limbs
+
+    bfv = golden.bfv_context(golden.BFV_N, device).first_context_data()
+    k_bfv = len(bfv.coeff_modulus_values)
+    behz = bfv.behz_limb_tables()
+    shapes = [("CKKS N=32768", golden.medium_context(device).first_context_data().limb_tables(), (8, 2)),
+              ("BFV N=8192 q", slice_limbs(behz, 0, k_bfv), (32, 2)),
+              ("BFV N=8192 Bsk", slice_limbs(behz, k_bfv, behz.q.shape[0]), (32, 2))]
+
+    def full(shape):
+        return torch.randint(-(1 << 63), (1 << 63) - 1, shape, dtype=torch.int64, device=device, generator=gen)
+
+    calls, launches = {}, 0
+    for label, t, lead in shapes:
+        k, n = t.q.shape[0], 1 << t.log_n
+        shape = (*lead, k, n)
+        qs = t.q.flatten().tolist()
+        ys = [q_ * 5 // 7 for q_ in qs]
+        y = u64_tensor([[v] for v in ys], device)
+        y_quot = u64_tensor([[(v << 64) // q_] for v, q_ in zip(ys, qs)], device)
+        c = (t.q, t.ratio_lo, t.ratio_hi)
+
+        def operands(x, x2, x3):
+            return {"add_mod": (x, x2, t.q), "sub_mod": (x, x2, t.q), "neg_mod": (x, t.q),
+                    "barrett_reduce_64": (x3, t.q, t.ratio_hi), "barrett_reduce_128": ((x3, x2), *c),
+                    "mul_mod": (x, x2, *c), "mul_mod_shoup": (x3, y, y_quot, t.q),
+                    "mul_mod_shoup_lazy": (x3, y, y_quot, t.q)}
+
+        reduced = operands(full(shape) % t.q, full(shape) % t.q, full(shape))
+        wide = operands(full(shape), full(shape), full(shape))
+        calls[label] = {}
+        for name, args in reduced.items():
+            fn = getattr(U, name)
+            for words, a in (("reduced", args), ("full-range", wide[name])):
+                torch.cuda.synchronize()
+                modarith_cuda.launches = 0
+                got = fn(*a)
+                torch.cuda.synchronize()
+                check(modarith_cuda.launches == 1, f"kernel E: {name} at {label} launched {modarith_cuda.launches} "
+                                                   f"times; expected 1")
+                launches += 1
+                want = on_plain(lambda: fn(*a))()
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"kernel E: {name} at {label} on {words} words differs from the plain body")
+            flat = [v for arg in args for v in (arg if isinstance(arg, tuple) else (arg,))]
+            nbytes = 8 * (sum(v.numel() for v in flat) + math.prod(shape))
+            muls, adds = MODARITH_WORK[name]
+            b, by = bound_ms(nbytes, math.prod(shape) * (muls * OPS_MUL64 + adds * OPS_ADD64))
+            ms, events_ms = kernel_ms(lambda: fn(*args), 100)
+            plain_ms = cuda_ms(on_plain(lambda: fn(*args)), 3, warmup=1)
+            calls[label][name] = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
+            print(f"[kernel E] {label} {name} {shape}, constants ({k}, 1): one launch, bit-exact on reduced and "
+                  f"full-range words; kernel {ms * 1e3:.2f} us device time ({100 * b / ms:.1f}% of the bound), "
+                  f"{events_ms * 1e3:.2f} us back to back by events; plain {plain_ms * 1e3:.1f} us by events; bound "
+                  f"{b * 1e3:.2f} us ({by})")
+    head = calls["CKKS N=32768"]["mul_mod"]
+    return {"name": "modarith", "route": "cuda", "source": "seal_tpu_torch/csrc/modarith.cu",
+            "replaces": "seal_tpu/ops/u64.py add_mod to mul_mod_shoup (XLA-fused on the TPU)", "launches": launches,
+            "max_abs_err": 0, "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None, "calls": calls}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2592,7 +2723,7 @@ def main():
     n32_device_ms = 0.0
     for label, t, shape, inverse, on_path in cases:
         x = lazy_input(t, shape, 2 if inverse else 4, gen)
-        plain_fn = (lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t))
+        plain_fn = on_plain((lambda: ntt_inverse(x, t)) if inverse else (lambda: ntt_forward(x, t)))
         got = ntt_cuda(x, t, inverse)
         want = plain_fn()
         torch.cuda.synchronize()
@@ -2635,13 +2766,14 @@ def main():
         t_n_arg = t_n if diag else None
         key = lazy_input(sel, (2, key_rows, Rn, n), 1, gen)
         got = switch_key_contract_cuda(t_c, t_n_arg, key, sel, plan.need_reduce)
-        want = switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce)
+        want = on_plain(lambda: switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce))()
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         check(err == 0, f"kernel B disagrees with its plain version on {label}: max abs err {err}")
         max_err["switch_key"] = max(max_err["switch_key"], err)
         ms, events_ms = kernel_ms(lambda: switch_key_contract_cuda(t_c, t_n_arg, key, sel, plan.need_reduce), 100)
-        plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce), 5, warmup=1)
+        plain_ms = cuda_ms(on_plain(lambda: switch_key_contract_plain(t_c, t_n_arg, key, sel, plan.need_reduce)), 5,
+                           warmup=1)
         nbytes, ops = switch_key_work(D, key_rows, Rn, level_cd.log_n, diag)
         b, by = bound_ms(nbytes, ops)
         print(f"[kernel B] {label} (D={D}, key rows {key_rows}, Rn={Rn}, N={n}, diagonal {diag}): bit-exact; "
@@ -2655,6 +2787,11 @@ def main():
     sk_case("next level, key trimmed", ctx, cd.next_context_data, k, True)
     wide = context(1024, [40] * 67, expand=False)
     sk_case("wide chain, Barrett guard", wide, wide.first_context_data(), 66, True)
+
+    # ---- phase 3b: kernel E vs plain -------------------------------------
+    t_e = time.time()
+    modarith = modarith_phase(gen)
+    print(f"[kernel E] phase 3b in {time.time() - t_e:.1f} s")
 
     # ---- phase 4: the slice ----------------------------------------------
     requests = 8
@@ -2784,14 +2921,14 @@ def main():
         h = x
         for which, (spec, name, tw) in enumerate(zip(specs, names, tws)):
             got = stage_cuda(h, name, ft, spec, tw)
-            want = FS.stage_plain(h, name, ft, spec, tw)
+            want = on_plain(lambda: FS.stage_plain(h, name, ft, spec, tw))()
             torch.cuda.synchronize()
             err = int((got - want).abs().max())
             check(err == 0, f"the stage kernel disagrees with its plain version on {label}, stage {which}: "
                             f"max abs err {err}")
             max_err["four_step_stage"] = max(max_err["four_step_stage"], err)
             ms, events_ms = kernel_ms(lambda: stage_cuda(h, name, ft, spec, tw), 50)
-            plain_ms = cuda_ms(lambda: FS.stage_plain(h, name, ft, spec, tw), 2, warmup=1)
+            plain_ms = cuda_ms(on_plain(lambda: FS.stage_plain(h, name, ft, spec, tw)), 2, warmup=1)
             nbytes, ops = stage_work(rows, t.q.shape[0], spec, tw is not None)
             bnd, by = bound_ms(nbytes, ops)
             madds = rows * spec.M * spec.K * spec.ncols
@@ -2812,12 +2949,12 @@ def main():
             h = got
         four_step = FS.four_step_inverse if inverse else FS.four_step_forward
         transform = lambda x, t: four_step(x, ft, stage=stage_cuda)          # N=32768 too: the stage kernel's split
-        butterflies = ntt_inverse if inverse else ntt_forward
+        butterflies = on_plain(lambda: (ntt_inverse if inverse else ntt_forward)(x, t))
         full = transform(x, t)
         torch.cuda.synchronize()
-        check(torch.equal(full, butterflies(x, t)), f"the four-step transform differs from the butterflies on {label}")
+        check(torch.equal(full, butterflies()), f"the four-step transform differs from the butterflies on {label}")
         fms = cuda_ms(lambda: transform(x, t), 10)
-        bms = cuda_ms(lambda: butterflies(x, t), 3, warmup=1)
+        bms = cuda_ms(butterflies, 3, warmup=1)
         print(f"[stage] {label}: the whole four-step transform (2 launches) equals the butterflies; {fms * 1e3:.1f} us, "
               f"butterflies in plain PyTorch {bms * 1e3:.1f} us")
 
@@ -2828,11 +2965,12 @@ def main():
     t_c = ntt_inverse(t_n, lt_first)
     key = lazy_input(lsel, (2, lplan.D, lsel.q.shape[0], n_large), 1, gen)
     got = switch_key_contract(t_c, t_n, key, lsel, lplan.need_reduce)
-    want = switch_key_contract_plain(t_c, t_n, key, lsel, lplan.need_reduce)
+    want = on_plain(lambda: switch_key_contract_plain(t_c, t_n, key, lsel, lplan.need_reduce))()
     torch.cuda.synchronize()
     check(torch.equal(got, want), "the staged key switch differs from the plain version at N=65536")
     sk_ms = cuda_ms(lambda: switch_key_contract(t_c, t_n, key, lsel, lplan.need_reduce), 10)
-    sk_plain_ms = cuda_ms(lambda: switch_key_contract_plain(t_c, t_n, key, lsel, lplan.need_reduce), 3, warmup=1)
+    sk_plain_ms = cuda_ms(on_plain(lambda: switch_key_contract_plain(t_c, t_n, key, lsel, lplan.need_reduce)), 3,
+                          warmup=1)
     print(f"[staged key switch] D={lplan.D}, Rn={lsel.q.shape[0]}, N={n_large}: equal to the plain version on the "
           f"card; {sk_ms * 1e3:.1f} us (the NTT on the stage kernel, the rest plain PyTorch), "
           f"plain {sk_plain_ms * 1e3:.1f} us")
@@ -3001,6 +3139,9 @@ def main():
          "max_abs_err": max_err["four_step_stage"], "ms": stage_totals["ms"],
          "plain_ms": stage_totals["plain_ms"], "bound_ms": b_stage, "bound_by": by_stage, "library_ms": None},
         turn_entry,
+        dict(modarith, linear_layer={"launches_per_request": linear["modarith_launches_per_request"],
+                                     "launches_per_batch": linear["modarith_launches_per_batch"]},
+             bfv=bfv["modarith"]),
     ]}
     for name, source, replaces in (
             ("blake2xb", "seal_tpu_torch/csrc/blake2xb.cu", "seal_tpu/ops/blake2_dev.py:184"),
@@ -3046,6 +3187,9 @@ def main():
           "plain version, read as u64; library_ms is null: no PyTorch call computes "
           "BLAKE2b or the samplers; client_ms holds phase 14(b)'s keygen and encryption ms on the device path and "
           "on the host path (SEAL_TPU_DEVICE_SAMPLING=0) at N=8192, 32768 and 65536")
+    print("[done] kernel E (modarith): ms, plain_ms and bound_ms are one mul_mod call at the CKKS N=32768 cell's "
+          "shape (8, 2, 15, 32768); calls holds every function at each shape of phase 3b; launches counts phase 3b's "
+          "checked calls; linear_layer and bfv its launches per request and per batch in phases 10 and 11")
     print("[done] the mesh objects of kernels A and B: phase 15's launches per batch of the BFV request (multiply -> "
           "relinearize) and the BGV request on the (data 4, limb 2) mesh of 8 ranks of the card at N=8192 (8 "
           "requests) and N=32768 (4), with the ms and device-busy ms per request; event_slope_ms in the n32768 "

@@ -29,14 +29,13 @@ kernels' are, even when ``lazy`` is asked for.  With ``SEAL_TPU_DEBUG=1``
 their plain versions: inside it, every entry point of the port (keygen,
 encryption, the encoder, the evaluator) runs the plain PyTorch versions on
 the card too, to check the kernels.  :func:`use_kernels` is what each
-dispatch reads.
+dispatch reads.  Both live in ``ops/u64.py``, whose modular functions
+dispatch too, and are exported here.
 
 Shapes: data is int64 (..., k, n); all k RNS limbs transform together.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -46,26 +45,7 @@ from . import u64 as U
 from .cuda_four_step import stage_cuda
 from .cuda_ntt import MAX_LOG_N, ntt_cuda
 from .four_step import four_step_forward, four_step_inverse
-
-
-_plain_on_card = False
-
-
-def use_kernels(x: torch.Tensor) -> bool:
-    """True where ``x`` lies on the card and no :func:`plain_on_card` block
-    is open: the dispatch then launches the card's kernels."""
-    return x.is_cuda and not _plain_on_card
-
-
-@contextlib.contextmanager
-def plain_on_card():
-    """Run the plain PyTorch versions on the card inside the block."""
-    global _plain_on_card
-    before, _plain_on_card = _plain_on_card, True
-    try:
-        yield
-    finally:
-        _plain_on_card = before
+from .u64 import plain_on_card, use_kernels
 
 
 def _guard(x: torch.Tensor, two_q: torch.Tensor) -> torch.Tensor:

@@ -14,19 +14,51 @@ words, and each 32x32 product into two 32x16 partial products (< 2^48), so
 no intermediate reaches 2^63 and nothing relies on int64 wraparound.  The
 CUDA kernels do the same arithmetic with ``__umul64hi`` and
 ``unsigned __int128``.  A u128 value is a pair ``(lo, hi)`` of u64 tensors.
+
+The modular functions (``add_mod`` to ``mul_mod_shoup``) send a tensor on
+the card to kernel E (``ops/cuda_modarith.py``), one launch a call, and
+run their plain bodies on the CPU and inside :func:`plain_on_card`.
+
+:func:`plain_on_card` is the one switch between the card's kernels and
+their plain versions: inside it, every entry point of the port (keygen,
+encryption, the encoder, the evaluator) runs the plain PyTorch versions on
+the card too, to check the kernels.  :func:`use_kernels` is what each
+dispatch reads; ``ops/ntt.py`` exports both.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
+
+from .cuda_modarith import modarith_cuda
 
 U128 = Tuple[torch.Tensor, torch.Tensor]
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
 _SIGN = -(1 << 63)
+
+_plain_on_card = False
+
+
+def use_kernels(x: torch.Tensor) -> bool:
+    """True where ``x`` lies on the card and no :func:`plain_on_card` block
+    is open: the dispatch then launches the card's kernels."""
+    return x.is_cuda and not _plain_on_card
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Run the plain PyTorch versions on the card inside the block."""
+    global _plain_on_card
+    before, _plain_on_card = _plain_on_card, True
+    try:
+        yield
+    finally:
+        _plain_on_card = before
 
 
 # ---------------------------------------------------------------------------
@@ -133,18 +165,24 @@ def add128(a: U128, b: U128) -> U128:
 
 def add_mod(x: torch.Tensor, y: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """(x + y) mod q; inputs < q < 2^62."""
+    if use_kernels(x):
+        return modarith_cuda("add_mod", x, y, q)
     s = x + y
     return torch.where(s >= q, s - q, s)
 
 
 def sub_mod(x: torch.Tensor, y: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """(x - y) mod q; inputs < q < 2^62."""
+    if use_kernels(x):
+        return modarith_cuda("sub_mod", x, y, q)
     d = x - y
     return torch.where(d < 0, d + q, d)
 
 
 def neg_mod(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """(-x) mod q; input < q (maps 0 -> 0)."""
+    if use_kernels(x):
+        return modarith_cuda("neg_mod", x, q)
     return torch.where(x != 0, q - x, x)
 
 
@@ -154,6 +192,8 @@ def barrett_reduce_64(x: torch.Tensor, q: torch.Tensor, ratio_hi: torch.Tensor) 
     The reference's ``barrett_reduce_64`` (uintarithsmallmod.h:211-236): one
     mulhi, one mullo, one conditional subtraction.
     """
+    if use_kernels(x):
+        return modarith_cuda("barrett_reduce_64", x, q, ratio_hi)
     red = sub64(x, mullo64(mulhi64(x, ratio_hi), q))     # < 2q
     return torch.where(_ge(red, q), red - q, red)
 
@@ -165,6 +205,8 @@ def barrett_reduce_128(z: U128, q: torch.Tensor, ratio_lo: torch.Tensor, ratio_h
     step, as ``seal_tpu.ops.u64.barrett_reduce_128`` does.
     """
     z0, z1 = z
+    if use_kernels(z0):
+        return modarith_cuda("barrett_reduce_128", z0, z1, q, ratio_lo, ratio_hi)
     carry = mulhi64(z0, ratio_lo)
     tmp2_lo, tmp2_hi = mul64_wide(z0, ratio_hi)
     tmp1, c = add64_carry(tmp2_lo, carry)
@@ -180,17 +222,23 @@ def barrett_reduce_128(z: U128, q: torch.Tensor, ratio_lo: torch.Tensor, ratio_h
 def mul_mod(x: torch.Tensor, y: torch.Tensor, q: torch.Tensor,
             ratio_lo: torch.Tensor, ratio_hi: torch.Tensor) -> torch.Tensor:
     """(x*y) mod q via 128-bit Barrett."""
+    if use_kernels(x):
+        return modarith_cuda("mul_mod", x, y, q, ratio_lo, ratio_hi)
     return barrett_reduce_128(mul64_wide(x, y), q, ratio_lo, ratio_hi)
 
 
 def mul_mod_shoup_lazy(x: torch.Tensor, y: torch.Tensor, y_quot: torch.Tensor,
                        q: torch.Tensor) -> torch.Tensor:
     """x*y mod q in [0, 2q), with y_quot = floor(y << 64 / q) and y < q."""
+    if use_kernels(x):
+        return modarith_cuda("mul_mod_shoup_lazy", x, y, y_quot, q)
     return sub64(mullo64(y, x), mullo64(mulhi64(x, y_quot), q))
 
 
 def mul_mod_shoup(x: torch.Tensor, y: torch.Tensor, y_quot: torch.Tensor,
                   q: torch.Tensor) -> torch.Tensor:
     """x*y mod q with Shoup-precomputed quotient (uintarithsmallmod.h:292-310)."""
+    if use_kernels(x):
+        return modarith_cuda("mul_mod_shoup", x, y, y_quot, q)
     r = mul_mod_shoup_lazy(x, y, y_quot, q)
     return torch.where(_ge(r, q), r - q, r)

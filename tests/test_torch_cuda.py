@@ -30,7 +30,10 @@ from seal_tpu_torch.modulus import Modulus
 from seal_tpu_torch.ntt_tables import build_limb_tables, four_step_tables_for
 from seal_tpu_torch.ops import four_step as FS
 from seal_tpu_torch.ops import ntt as NTT
+from seal_tpu_torch.ops import u64 as U64
 from seal_tpu_torch.ops.cuda_four_step import stage_cuda
+from seal_tpu_torch.ops.cuda_modarith import OPS as MODARITH_OPS
+from seal_tpu_torch.ops.cuda_modarith import modarith_cuda
 from seal_tpu_torch.ops.cuda_ntt import ntt_cuda
 from seal_tpu_torch.ops.cuda_switch_key import switch_key_contract_cuda, switch_key_contract_plain
 from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
@@ -70,7 +73,8 @@ def test_ntt_kernel_matches_plain(card, log_n, inverse):
     mods = CoeffModulus.create(max(1 << log_n, 1024), [60, 50, 40])
     t = build_limb_tables(log_n, mods, device=card)
     x = _uniform((2, 3, 1 << log_n), t.q * (2 if inverse else 4), card, log_n)
-    want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
+    with NTT.plain_on_card():
+        want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
     assert torch.equal(ntt_cuda(x, t, inverse), want)
 
 
@@ -86,7 +90,8 @@ def test_ntt_kernel_matches_plain_at_row_counts(card, log_n, rows, inverse):
     mods = CoeffModulus.create(1 << log_n, [60, 40, 40, 40, 60][:k])
     t = build_limb_tables(log_n, mods, device=card)
     x = _uniform((rows // k, k, 1 << log_n), t.q * (2 if inverse else 4), card, rows + log_n)
-    want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
+    with NTT.plain_on_card():
+        want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
     before = ntt_cuda.launches
     got = (NTT.inverse if inverse else NTT.forward)(x, t)
     assert ntt_cuda.launches == before + 1
@@ -104,7 +109,8 @@ def test_switch_key_kernel_matches_plain(card, diag):
     t_c = ntt_inverse(t_n, cd.limb_tables())
     key = _uniform((2, plan.D + 1, t.q.shape[0], 4096), t.q, card, 2)   # one extra key row
     t_n = t_n if diag else None
-    want = switch_key_contract_plain(t_c, t_n, key, t, plan.need_reduce)
+    with NTT.plain_on_card():
+        want = switch_key_contract_plain(t_c, t_n, key, t, plan.need_reduce)
     assert torch.equal(switch_key_contract_cuda(t_c, t_n, key, t, plan.need_reduce), want)
 
 
@@ -135,7 +141,9 @@ def test_switch_key_kernel_matches_plain_at_n32768(card, diag, level):
     before = switch_key_contract_cuda.launches
     got = switch_key_contract_cuda(t_c[0], None if t_n is None else t_n[0], key, t, need)
     assert switch_key_contract_cuda.launches == before + 1 and got.shape == (2, 16 - level, 32768)
-    assert torch.equal(got, switch_key_contract_plain(t_c[0], None if t_n is None else t_n[0], key, t, need))
+    with NTT.plain_on_card():
+        want = switch_key_contract_plain(t_c[0], None if t_n is None else t_n[0], key, t, need)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -145,7 +153,9 @@ def test_batched_switch_key_kernel_at_n32768_with_row_offset(card, diag):
     decomposition (a limb rank's share; the diagonal at i == 4 + j)."""
     t_c, t_n, key, t, need = _medium_key_switch(card, 0, 3, 4, 11, diag, 9)
     got = switch_key_contract_cuda(t_c, t_n, key, t, need, row_offset=4)
-    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, t, need, row_offset=4))
+    with NTT.plain_on_card():
+        want = switch_key_contract_plain(t_c, t_n, key, t, need, row_offset=4)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -164,7 +174,9 @@ def test_switch_key_kernel_cluster_sizes(card, log_n, diag):
     key = _uniform((2, 3, 4, 1 << log_n), ctx_t.q, card, log_n + 1)
     t_n = t_n if diag else None
     got = switch_key_contract_cuda(t_c, t_n, key, ctx_t, need)
-    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, ctx_t, need))
+    with NTT.plain_on_card():
+        want = switch_key_contract_plain(t_c, t_n, key, ctx_t, need)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -183,7 +195,9 @@ def test_switch_key_kernel_barrett_guard(card, log_n):
     t_c = ntt_inverse(t_n, level)
     key = _uniform((2, 66, 67, n), t.q, card, 6)
     got = switch_key_contract_cuda(t_c, t_n, key, t, need)
-    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, t, need))
+    with NTT.plain_on_card():
+        want = switch_key_contract_plain(t_c, t_n, key, t, need)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -282,9 +296,12 @@ def test_stage_kernel_matches_plain(card, log_n, inverse):
     h = x
     for spec, name, tw in zip(specs, names, tws):
         got = stage_cuda(h, name, ft, spec, tw)
-        assert torch.equal(got, FS.stage_plain(h, name, ft, spec, tw))
+        with NTT.plain_on_card():
+            want = FS.stage_plain(h, name, ft, spec, tw)
+        assert torch.equal(got, want)
         h = got
-    want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
+    with NTT.plain_on_card():
+        want = ntt_inverse(x, t) if inverse else ntt_forward(x, t)
     assert torch.equal(h, want)
     assert torch.equal((NTT.inverse if inverse else NTT.forward)(x, t), want)
 
@@ -306,7 +323,9 @@ def test_stage_kernel_matches_plain_at_row_counts(card, log_n, rows, inverse):
     tw = (ft.twi_op, ft.twi_qt) if inverse else (ft.tw_op, ft.tw_qt)
     for spec, name in zip(specs, names):
         for twiddle in (tw, None):
-            assert torch.equal(stage_cuda(x, name, ft, spec, twiddle), FS.stage_plain(x, name, ft, spec, twiddle))
+            with NTT.plain_on_card():
+                want = FS.stage_plain(x, name, ft, spec, twiddle)
+            assert torch.equal(stage_cuda(x, name, ft, spec, twiddle), want)
 
 
 @pytest.mark.cuda
@@ -416,7 +435,9 @@ def test_batched_switch_key_kernel_matches_single_launches(card, diag, rows):
     for b in range(3):
         one = switch_key_contract_cuda(t_c[b], None if t_n is None else t_n[b], key, t, need, row_offset=lo)
         assert torch.equal(got[b], one)
-    assert torch.equal(got, switch_key_contract_plain(t_c, t_n, key, t, need, row_offset=lo))
+    with NTT.plain_on_card():
+        want = switch_key_contract_plain(t_c, t_n, key, t, need, row_offset=lo)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -435,11 +456,15 @@ def test_stage_kernel_on_rank_shards(card, log_n, P):
     for m, col in enumerate(dist.split_columns(x)):
         for name, tw in (("w", dist.tw[m]), ("winv", None)):
             args = (col, name, dist.tables[m], dist.spec_cols, tw)
-            assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
+            with NTT.plain_on_card():
+                want = FS.stage_plain(*args)
+            assert torch.equal(stage_cuda(*args), want)
     for m, row in enumerate(dist.split_rows(x)):
         for name, tw in (("finv", dist.twi[m]), ("f", None)):
             args = (row, name, dist.tables[m], dist.spec_rows, tw)
-            assert torch.equal(stage_cuda(*args), FS.stage_plain(*args))
+            with NTT.plain_on_card():
+                want = FS.stage_plain(*args)
+            assert torch.equal(stage_cuda(*args), want)
     before = corner_turn_cuda.launches
     fwd = dist.forward(x)
     assert torch.equal(fwd, NTT.forward(x, t))
@@ -478,7 +503,8 @@ def test_ntt_kernel_matches_plain_on_the_behz_tables(card, n):
              (slice_limbs(key_t, 0, k), (2, k, n), True)]
     for i, (tab, shape, inverse) in enumerate(cases):
         x = _uniform(shape, tab.q * (2 if inverse else 4), card, i)
-        want = ntt_inverse(x, tab) if inverse else ntt_forward(x, tab)
+        with NTT.plain_on_card():
+            want = ntt_inverse(x, tab) if inverse else ntt_forward(x, tab)
         assert torch.equal(ntt_cuda(x, tab, inverse), want)
 
 
@@ -496,7 +522,9 @@ def test_switch_key_kernel_without_diagonal_at_bfv_shapes(card, n):
     for shape in ((D, n), (4, D, n)):
         t_c = _uniform(shape, cd.limb_tables().q, card, len(shape))
         got = switch_key_contract_cuda(t_c, None, key, sel, plan.need_reduce)
-        assert torch.equal(got, switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce))
+        with NTT.plain_on_card():
+            want = switch_key_contract_plain(t_c, None, key, sel, plan.need_reduce)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -561,7 +589,8 @@ def test_ntt_kernel_matches_plain_at_bgv_shapes(card, n):
     cases += [(tab, (4, *shape), inverse) for tab, shape, inverse in cases]
     for i, (tab, shape, inverse) in enumerate(cases):
         x = _uniform(shape, tab.q * (2 if inverse else 4), card, i)
-        want = ntt_inverse(x, tab) if inverse else ntt_forward(x, tab)
+        with NTT.plain_on_card():
+            want = ntt_inverse(x, tab) if inverse else ntt_forward(x, tab)
         assert torch.equal(ntt_cuda(x, tab, inverse), want)
 
 
@@ -734,10 +763,12 @@ def test_sample_kernel_matches_plain(card, chain):
     noise = cbd_lifted_cuda(words, n, q, 67)
     torch.cuda.synchronize()
     assert (uniform_bulk_cuda.launches, cbd_lifted_cuda.launches) == (before[0] + 1, before[1] + 1)
-    want_vals, want_counts = B.uniform_bulk_plain(words, n, moduli)
+    with NTT.plain_on_card():
+        want_vals, want_counts = B.uniform_bulk_plain(words, n, moduli)
+        want_noise = B.cbd_lifted_plain(words, n, moduli, 67)
     assert torch.equal(vals, want_vals) and torch.equal(counts, want_counts)
     assert bool((counts > 0).all()) == (chain == "high_rejection")
-    assert torch.equal(noise, B.cbd_lifted_plain(words, n, moduli, 67))
+    assert torch.equal(noise, want_noise)
     if chain == "high_rejection":
         got, overflow = B.uniform_from_seed_words(seeds, n, moduli)
         torch.cuda.synchronize()
@@ -905,3 +936,142 @@ def test_device_time_us_agrees_with_event_timing(card):
     torch.cuda.synchronize()
     events_us = start.elapsed_time(end) / 200 * 1e3
     assert 0.5 * events_us < us < 2 * events_us, (us, events_us)
+
+
+# -- kernel E: the modular functions of ops/u64.py ------------------------------
+
+MODARITH_BASES = {"ckks": "CKKS N=32768, 15 limbs of 55 bits, 8 x 2 rows",
+                  "bfv_q": "BFV N=8192, q's 4 limbs, 32 x 2 rows",
+                  "bfv_bsk": "BFV N=8192, the Bsk base, 32 x 2 rows"}
+
+
+def _modarith_base(base, device):
+    """(leading axes, tables) at a benchmark cell's shapes."""
+    if base == "ckks":
+        return (8, 2), build_limb_tables(15, CoeffModulus.create(32768, [55] * 15), device=device)
+    cd = golden.bfv_context(8192, device).first_context_data()
+    if base == "bfv_q":
+        return (32, 2), cd.limb_tables()
+    behz = cd.behz_limb_tables()
+    return (32, 2), slice_limbs(behz, len(cd.coeff_modulus_values), behz.q.shape[0])
+
+
+def _words(shape, device, gen):
+    """Full-range 64-bit words."""
+    return torch.randint(-(1 << 63), (1 << 63) - 1, shape, dtype=torch.int64, device=device, generator=gen)
+
+
+def _shoup_constants(t, gen):
+    """A per-limb multiplicand y < q and its Shoup quotient floor(y 2^64 / q)."""
+    qs = [int(v) for v in t.q.flatten().tolist()]
+    ys = [int(v) % q for v, q in zip(torch.randint(0, 1 << 62, (len(qs),), generator=gen).tolist(), qs)]
+    y = u64_from_numpy(np.array([[v] for v in ys], dtype=np.uint64), t.q.device)
+    yq = u64_from_numpy(np.array([[(v << 64) // q] for v, q in zip(ys, qs)], dtype=np.uint64), t.q.device)
+    return y, yq
+
+
+def _modarith_args(name, lead, t, values, seed):
+    """The function's operands in its order: ``values`` "random" (every
+    operand full-range words, the constants too), "edges" (data words 0,
+    q-1, 2q-1, 4q-1, 2^62, 2^63 and -1 among random words) or "lazy" (data
+    as x + c - y with x, y < q and c = 2q, 4q)."""
+    device = t.q.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    host = torch.Generator().manual_seed(seed)
+    k, n = t.q.shape[0], 1 << t.log_n
+    shape = (*lead, k, n)
+    q, rlo, rhi = t.q, t.ratio_lo, t.ratio_hi
+    y, yq = _shoup_constants(t, host)
+
+    def below(bound):
+        return torch.randint(0, 1 << 62, shape, dtype=torch.int64, device=device, generator=gen) % bound
+
+    if values == "random":
+        q, rlo, rhi = (_words((k, 1), device, gen) for _ in range(3))
+        y, yq = _words(shape, device, gen), _words(shape, device, gen)
+        data = lambda: _words(shape, device, gen)                          # noqa: E731
+    elif values == "edges":
+        one = torch.ones_like(q)
+        edges = torch.stack([0 * q, q - 1, 2 * q - 1, 4 * q - 1, one << 62, one << 63, -one], dim=-1)   # (k, 1, 7)
+
+        def data():
+            pick = torch.randint(0, 2 * edges.shape[-1], shape, device=device, generator=gen)
+            table = edges.expand(*shape, edges.shape[-1])
+            edge = table.gather(-1, pick.clamp(max=edges.shape[-1] - 1)[..., None])[..., 0]
+            return torch.where(pick < edges.shape[-1], edge, _words(shape, device, gen))
+    else:
+        c = 2 * q if name in ("add_mod", "sub_mod", "neg_mod", "mul_mod_shoup_lazy") else 4 * q
+        data = lambda: below(q) + c - below(q)                              # noqa: E731
+    return {
+        "add_mod": lambda: (data(), data(), q),
+        "sub_mod": lambda: (data(), data(), q),
+        "neg_mod": lambda: (data(), q),
+        "barrett_reduce_64": lambda: (data(), q, rhi),
+        "barrett_reduce_128": lambda: ((data(), data()), q, rlo, rhi),
+        "mul_mod": lambda: (data(), data(), q, rlo, rhi),
+        "mul_mod_shoup": lambda: (data(), y, yq, q),
+        "mul_mod_shoup_lazy": lambda: (data(), y, yq, q),
+    }[name]()
+
+
+def _kernel_e_against_plain(name, args, case=""):
+    """Kernel E's output (one launch) equals the plain body's on the card."""
+    f = getattr(U64, name)
+    before = modarith_cuda.launches
+    got = f(*args)
+    assert modarith_cuda.launches == before + 1, case
+    with NTT.plain_on_card():
+        want = f(*args)
+    assert got.shape == want.shape and got.is_contiguous(), case
+    assert torch.equal(got, want), (name, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["random", "edges", "lazy"])
+@pytest.mark.parametrize("base", sorted(MODARITH_BASES))
+@pytest.mark.parametrize("name", sorted(MODARITH_OPS))
+def test_modarith_kernel_matches_plain(card, name, base, values):
+    lead, t = _modarith_base(base, card)
+    _kernel_e_against_plain(name, _modarith_args(name, lead, t, values, len(name) + len(base)))
+
+
+def _modarith_layouts(card):
+    """(function, operands) of each layout the port passes, at N=32768 with
+    (15, 1) constants, and of the kernel's other paths."""
+    _, t = _modarith_base("ckks", card)
+    q, rlo, rhi = t.q, t.ratio_lo, t.ratio_hi
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    y, yq = _shoup_constants(t, torch.Generator().manual_seed(5))
+    n = 1 << t.log_n
+    full, three = _words((8, 2, 15, n), card, gen), _words((8, 3, 15, n), card, gen)
+    last = _words((8, 2, 1, n), card, gen)
+    rows = full.numel() // 64
+    return {
+        "ct_data[..., :2, :, :]": ("add_mod", (three[..., :2, :, :], full, q)),
+        "new[..., :1, :, :] over the ciphertext axis": ("add_mod", (full[..., :1, :, :], three[..., :2, :, :], q)),
+        "x[..., :k-1, :] with sliced constants": ("mul_mod_shoup", (full[..., :14, :], y[:14], yq[:14], q[:14])),
+        "prod[..., lo:hi, :]": ("barrett_reduce_128", ((three[:, 1:, 1:3, :], full[..., 1:3, :]), q[1:3], rlo[1:3],
+                                                        rhi[1:3])),
+        "(..., 1, n) over the limbs": ("barrett_reduce_64", (last, q[:14], rhi[:14])),
+        "(1, 1) constants": ("mul_mod_shoup_lazy", (full, y[:1], yq[:1], q[:1])),
+        "0-dim constants": ("barrett_reduce_64", (full[:, 0, 2], q[2, 0], rhi[2, 0])),
+        "strided last axis (copied)": ("sub_mod", (full[..., ::2], full[..., 1::2], q)),
+        "odd rows, unaligned (scalar loads)": ("mul_mod", (full[..., 1:], full[..., :-1], q, rlo, rhi)),
+        "even rows, unaligned (scalar loads)": ("neg_mod", (full[..., 1:-1], q)),
+        "more rows than the grid's y, per-row constants": ("barrett_reduce_64", (
+            full.reshape(-1, 64), _words((rows, 1), card, gen), _words((rows, 1), card, gen))),
+    }
+
+
+@pytest.mark.cuda
+def test_modarith_kernel_on_each_layout(card):
+    """Bit for bit with the plain bodies, one launch each; no launch for
+    an empty call."""
+    for case, (name, args) in _modarith_layouts(card).items():
+        _kernel_e_against_plain(name, args, case)
+    empty = torch.empty((0, 15, 8), dtype=torch.int64, device=card)
+    before = modarith_cuda.launches
+    assert U64.add_mod(empty, empty, torch.ones((15, 1), dtype=torch.int64, device=card)).shape == (0, 15, 8)
+    assert modarith_cuda.launches == before
