@@ -3,13 +3,27 @@
 Once the window has closed and the program's state is freed, the plain
 reference (``reference/``) recomputes the sampled calls from the
 benchmark's own inputs, regenerated from the seed, and every word of every
-output ciphertext is compared with the program's, with its form and scale.
-The limits are those of an exact comparison.
+output ciphertext is compared with the program's, with its form, scale
+and correction factor.  The limits are those of an exact comparison.
+
+A configuration's reference is the class ``Reference`` of the module that
+its file's ``reference`` key names (a path from the repository's root
+that lies under ``portbench/reference/``), else of
+``reference/program.py``.  It is built as ``Reference(config, device,
+rounding)``, has the configuration's degree as ``n``, and gives each
+operation by the evaluator's method name through ``op(name)``; an
+operation takes :class:`~portbench.reference.program.Ct`, ``Plain`` and
+``Key`` inputs and returns a ``Ct``.  The module is loaded by its path, so
+it imports what it shares by absolute names (``from portbench.reference
+import program``).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import random
+import re
+from pathlib import Path
 from typing import Dict, List
 
 import torch
@@ -17,6 +31,10 @@ import torch
 from .inputs import Inputs
 from .reference.program import Ct, Key, Plain, Reference
 from .traffic import key_elements, rotations, run_program
+
+ROOT = Path(__file__).resolve().parents[1]
+# the metadata of an output, compared with the reference's
+FIELDS = ("ntt_form", "scale", "correction_factor")
 
 # name: (limit, rule); "at most" numbers fail above the limit
 LIMITS = {"mismatched_words": (0, "at most"), "metadata_mismatches": (0, "at most"),
@@ -42,6 +60,25 @@ class Reservoir:
                 self.items[j] = item
 
 
+def load_file(path: Path, module_name: str):
+    """The module of the Python file at ``path``, loaded by its path."""
+    loaded = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(loaded)
+    loaded.loader.exec_module(module)
+    return module
+
+
+def reference_class(config: dict) -> type:
+    """The configuration's plain reference (see the module's docstring)."""
+    path = config.get("reference")
+    if path is None:
+        return Reference
+    home = ROOT / "portbench" / "reference"
+    if Path(path).is_absolute() or home not in (ROOT / path).resolve().parents:
+        raise ValueError(f"{config['name']}: its reference {path} is not a path under portbench/reference/")
+    return load_file(ROOT / path, "portbench_reference_" + re.sub(r"\W", "_", str(path))).Reference
+
+
 def call_inputs(reference: Reference, inputs: Inputs, mix: dict, call: int, scale: float) -> Dict[str, object]:
     """The shared plaintexts and the keys of call ``call``'s client that
     the mix's program uses, each key made alone from its place in the
@@ -59,8 +96,10 @@ def call_inputs(reference: Reference, inputs: Inputs, mix: dict, call: int, scal
 
 def compare(config: dict, mix: dict, seed: int, sampled: List[dict], device) -> dict:
     """The checked numbers, each {value, limit, rule}, over the sampled
-    calls' outputs ({'call', 'data' (B, size, k, n), 'ntt_form', 'scale'})."""
-    reference = Reference(config, device)
+    calls' outputs ({'call', 'data' (B, size, k, n), and the fields of
+    ``FIELDS``}); each field that differs from the reference's is one
+    metadata mismatch."""
+    reference = reference_class(config)(config, device)
     inputs = Inputs(config, seed, device)
     scale = float(config.get("scale", 1.0))
     ntt_form = config["scheme"] != "bfv"
@@ -79,8 +118,7 @@ def compare(config: dict, mix: dict, seed: int, sampled: List[dict], device) -> 
                 metadata += 1
                 continue
             words += int((got[b].to(want.data.device) != want.data).sum())
-            if item["ntt_form"] != want.ntt_form or item["scale"] != want.scale:
-                metadata += 1
+            metadata += sum(item.get(f) != getattr(want, f) for f in FIELDS)
     values = {"mismatched_words": words, "metadata_mismatches": metadata,
               "missing_calls": max(0, mix["check_calls"] - len(sampled))}
     checks = {name: {"value": v, "limit": LIMITS[name][0], "rule": LIMITS[name][1]} for name, v in values.items()}

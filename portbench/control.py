@@ -1,9 +1,10 @@
 """The control of the comparison that decides ``correct``.
 
-The control is the plain reference put in the program's place with one of
-the configuration's guarantees broken: it divides by the special prime and
-by the last prime by flooring instead of rounding, a step that saves an add
-per coefficient and still decrypts to nearly the same values.  Its outputs,
+The control is the configuration's plain reference (``checks.reference_class``)
+put in the program's place with one of the configuration's guarantees
+broken: it divides by the special prime and by the last prime by flooring
+instead of rounding, a step that saves an add per coefficient and still
+decrypts to nearly the same values.  Its outputs,
 for as many calls as a run compares, go through the same comparison as the
 program's; a sound comparison finds them wrong.  The benchmark's own runs
 never run this.
@@ -28,7 +29,7 @@ import torch  # noqa: E402
 from portbench import checks  # noqa: E402
 from portbench.harness import cell_of, config_of  # noqa: E402
 from portbench.inputs import Inputs  # noqa: E402
-from portbench.reference.program import Ct, Reference  # noqa: E402
+from portbench.reference.program import Ct  # noqa: E402
 from portbench.traffic import load_mix, run_program  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
@@ -37,7 +38,7 @@ HERE = Path(__file__).resolve().parent
 def control_outputs(config: dict, mix: dict, seed: int, device) -> list:
     """The control's outputs for calls 0 .. check_calls - 1, as a run's
     sampled outputs."""
-    control = Reference(config, device, rounding=False)
+    control = checks.reference_class(config)(config, device, rounding=False)
     inputs = Inputs(config, seed, device)
     ntt_form = config["scheme"] != "bfv"
     scale = float(config.get("scale", 1.0))
@@ -49,7 +50,7 @@ def control_outputs(config: dict, mix: dict, seed: int, device) -> list:
                            {**{k: Ct(v[b], ntt_form, scale) for k, v in requests.items()}, **keys}, mix["output"])
                for b in range(mix["batch"])]
         out.append({"call": call, "data": torch.stack([c.data for c in cts]),
-                    "ntt_form": cts[0].ntt_form, "scale": cts[0].scale})
+                    **{f: getattr(cts[0], f) for f in checks.FIELDS}})
     return out
 
 

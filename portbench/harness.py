@@ -2,8 +2,9 @@
 the comparison with the reference, and the result line.
 
 Everything a cell needs is found by name: ``BENCHMARK.json`` names the
-cell's configuration file, its mix (``mixes/<traffic>.json``) and its
-metrics; an end-to-end metric is computed here from the window by its name
+cell's configuration file (which may name its plain reference, see
+``checks``), its mix (``mixes/<traffic>.json``) and its metrics; an
+end-to-end metric is computed here from the window by its name
 (``ct_per_s``, ``latency_p<percentile>_ms``, ``setup_s``), a per-layer
 metric by its reader ``metrics/<name>.py``.  ``kernels/<name>.json`` names
 the hand-written kernels whose launches a trace must hold.
@@ -11,7 +12,6 @@ the hand-written kernels whose launches a trace must hold.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import re
 import subprocess
@@ -61,12 +61,7 @@ def metrics_of(spec: dict, workload: str, trace: bool) -> List[dict]:
 
 
 def load_reader(name: str):
-    path = HERE / "metrics" / f"{name}.py"
-    mod_name = "portbench_metric_" + re.sub(r"\W", "_", name)
-    loaded = importlib.util.spec_from_file_location(mod_name, path)
-    module = importlib.util.module_from_spec(loaded)
-    loaded.loader.exec_module(module)
-    return module
+    return checks.load_file(HERE / "metrics" / f"{name}.py", "portbench_metric_" + re.sub(r"\W", "_", name))
 
 
 def end_to_end(name: str, setup_s: float, window) -> Optional[float]:

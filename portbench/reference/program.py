@@ -4,7 +4,8 @@ primes and the benchmark's own inputs.
 
 It imports nothing of the program under test.  A ciphertext is a
 :class:`Ct`: (size, k, n) int64 words mod the first k data primes, its
-form and its scale, as Microsoft SEAL keeps them.
+form, its scale and its correction factor (BGV's; 1 in the other
+schemes), as Microsoft SEAL keeps them.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class Ct:
     data: torch.Tensor          # (size, k, n)
     ntt_form: bool
     scale: float = 1.0
+    correction_factor: int = 1
 
 
 @dataclass

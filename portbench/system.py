@@ -82,5 +82,7 @@ class System:
 
     @staticmethod
     def output(out: CiphertextBatch) -> dict:
-        """A call's output as (B, size, k, n) words and metadata."""
-        return {"data": out.data, "ntt_form": bool(out.is_ntt_form), "scale": float(out.scale)}
+        """A call's output as (B, size, k, n) words and metadata: form,
+        scale and correction factor (BGV's; 1 in the other schemes)."""
+        return {"data": out.data, "ntt_form": bool(out.is_ntt_form), "scale": float(out.scale),
+                "correction_factor": int(out.correction_factor)}

@@ -119,7 +119,7 @@ def test_importing_the_benchmark_loads_no_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for p in (HERE / "reference").glob("*.py"):
+    for p in (HERE / "reference").rglob("*.py"):
         text = p.read_text()
         assert not re.search(r"^\s*(from|import)\s+(seal_tpu|seal_tpu_torch|jax)\b", text, re.M), p.name
         assert "portbench.system" not in text and "from ..system" not in text, p.name
@@ -161,12 +161,36 @@ def test_recorded_calls_keep_shapes_and_no_data():
     assert call.args[0].shape == (3, 5) and call.args[0].device.type == "meta" and out["aten"] > 0
 
 
+# the key set each operation that takes a key takes, as its last argument
+KEY_OF = {"relinearize": "relin_keys", "rotate_vector": "galois_keys", "rotate_rows": "galois_keys"}
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_every_client_holds_the_default_galois_keys_and_the_relinearization_key(cell):
+    """The clients hold the key sets their mix names, each as Microsoft
+    SEAL makes it: every key that the program passes is one of them, of the
+    kind its operation takes, and every rotation has a key in the default
+    Galois set."""
     from portbench.traffic import key_elements, rotations
     w = next(w for w in SPEC["workloads"] if w["name"] == cell)
     mix = load_mix(HERE / "mixes" / f"{w['traffic']}.json")
     config = json.loads((ROOT / next(c for c in SPEC["configs"] if c["name"] == w["config"])["file"]).read_text())
     n = config["poly_modulus_degree"]
-    assert sorted(mix["client_keys"].values()) == ["galois_keys", "relin_keys"] and mix["clients"] > 1
+    assert mix["clients"] > 1
+    for _, op, *args in mix["program"]:
+        keys = [a for a in args if isinstance(a, str) and a in mix["client_keys"]]
+        assert keys == ([args[-1]] if op in KEY_OF else []), (op, args)
+        assert [mix["client_keys"][k] for k in keys] == [KEY_OF.get(op)] * len(keys), (op, args)
     assert set(rotations(mix, n)) <= set(key_elements("galois_keys", n))
+
+
+def test_every_configurations_reference_lies_under_reference_and_imports_nothing_of_the_program():
+    home = HERE / "reference"
+    files = [ROOT / c["file"] for c in SPEC["configs"]] + sorted((HERE / "tests" / "configs").glob("*.json"))
+    for f in files:
+        path = json.loads(f.read_text()).get("reference")
+        if path is None:
+            continue
+        assert not Path(path).is_absolute() and home in (ROOT / path).resolve().parents, (f.name, path)
+        text = (ROOT / path).read_text()
+        assert not re.search(r"^\s*(from|import)\s+(seal_tpu|seal_tpu_torch|jax)\b", text, re.M), path

@@ -9,6 +9,7 @@ port's output for each mix, through the whole harness.  On the card (marked
 ``cuda``): the same through the port's kernels at the cells' own sizes.
 """
 
+import json
 import random
 import time
 from pathlib import Path
@@ -27,7 +28,7 @@ from seal_tpu_torch.ops.poly import get_elts_all
 from seal_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ["ckks32k-linear-batch8", "bfv8k-mulrelin-batch32"]
+CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
